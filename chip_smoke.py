@@ -9,19 +9,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    whether the native host runtime loaded, and the nvcc build of the kernels.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
    on the same inputs, byte for byte (tolerance: exact), at main-path shapes
-   (R = 8 streams of 1-4 MiB of packed SEQ and packed QUAL) and at edge cases;
-   times of kernel and plain version from CUDA events, and the kernel's time
-   at R = 1 on one 16 MiB VB's packed stream, the shape the full run's nested
-   SEQ and QUAL streams launch with.
+   (R = 8 streams of 1-4 MiB of packed SEQ and packed QUAL, which has 256
+   symbols, and of raw QUAL, which has few) and at edge cases; times of
+   kernel and plain version from CUDA events, also at R = 1 on one 16 MiB
+   VB's packed stream, the shape the full runs' nested SEQ and QUAL streams
+   launch with.
 3. device equals host: `zip` of a 64 MiB FASTQ with --device cuda and with
    --device cpu must write the same archive bytes.
-4. full run: `zip`, then `unzip`, of a 512 MiB cfg3-shaped FASTQ, compared
-   byte for byte; `cat --head 1000` and `ls`. Every kernel's launch count
-   over this run must be > 0, and jax must never have been imported.
+4. cfg3 full run: `zip`, then `unzip`, of a 512 MiB cfg3-shaped FASTQ,
+   compared byte for byte; `cat --head 1000` and `ls`. Every kernel's launch
+   count over this run must be > 0.
+5. entry points: the single-stream `encode`, `decode`, `encode_order1`,
+   `decode_order1` and the fixed-lane `encode_many` of `ops.rans_cuda` on the
+   card, each byte-equal to its plain version on the card and (decoders) to
+   the input (tolerance: exact), at n in {100, 517, 33000, 131072,
+   200000} and N in {128, 256, 1024}; kernel and plain times on one 1.84 MB
+   VB stream at N = 1024.
+6. cfg4 full run: a 64 Mbp genome (the length of GRCh38 chr20), `zip
+   --make-reference`, 2 x 256 MiB of paired FASTQ off it, `zip --pair
+   --reference --vblock 16`, `unzip` of both components compared byte for
+   byte, `cat --r1 --head 1000`, `cat --interleave --head 1000` and `ls`;
+   every kernel's launch count over this run must be > 0. At 2 x 16 MiB the
+   --device cuda archive must equal the --device cpu one, and a --REFERENCE
+   archive must unzip without --reference.
 
-The last two lines are a JSON object with the kernels' numbers and
-{"ok": true, "device": {...}}. Needs no network; writes under a temporary
-directory that it removes.
+jax must never have been imported. The last two lines are a JSON object with
+the numbers of all sixteen TPU kernels' counterparts and {"ok": true,
+"device": {...}}. Needs no network; writes under a temporary directory that
+it removes.
 """
 
 import contextlib
@@ -42,12 +57,35 @@ R = 8
 # packed SEQ and its packed 4-bin QUAL are each ~1.84 MB; ACGT and PACK1 hand
 # each of them to the kernel alone (R = 1)
 VB_STREAM = 16 * MIB // 342 * 150 // 4
-KERNEL_ROWS = [  # name, order, encode?, TPU kernel it replaces
-    ("rans_encode_o0", 0, True, "genozip_tpu/ops/rans_pallas.py:1764"),
-    ("rans_decode_o0", 0, False, "genozip_tpu/ops/rans_pallas.py:1391"),
-    ("rans_encode_o1", 1, True, "genozip_tpu/ops/rans_pallas.py:1925"),
-    ("rans_decode_o1", 1, False, "genozip_tpu/ops/rans_pallas.py:1603"),
+KERNEL_ROWS = [  # name, order, encode?
+    ("rans_encode_o0", 0, True), ("rans_decode_o0", 0, False),
+    ("rans_encode_o1", 1, True), ("rans_decode_o1", 1, False),
 ]
+PALLAS = "genozip_tpu/ops/rans_pallas.py:"
+# the sixteen TPU kernels: (device fn line, port kernel, entry point, the
+# measurement of phase 2 or 5 that times it)
+TPU_ROWS = [
+    (1764, "rans_encode_o0", "encode_many", "main"),
+    (1391, "rans_decode_o0", "decode_many", "main"),
+    (1925, "rans_encode_o1", "encode_many", "palette"),
+    (1603, "rans_decode_o1", "decode_many", "palette"),
+    (3108, "rans_encode_o1", "encode_many", "main"),
+    (2908, "rans_decode_o1", "decode_many", "main"),
+    (1231, "rans_decode_o0", "decode_many", "vb"),
+    (2466, "rans_encode_o0", "encode_many(n_lanes=1024)", "entry_many"),
+    (2677, "rans_encode_o0", "encode", "entry"),
+    (377, "rans_decode_o0", "decode", "entry"),
+    (350, "rans_decode_o0", "decode", "entry"),
+    (769, "rans_decode_o0", "decode", "entry"),
+    (743, "rans_decode_o0", "decode", "entry"),
+    (717, "rans_decode_o0", "decode", "entry"),
+    (883, "rans_decode_o1", "decode_order1", "entry"),
+    (1008, "rans_encode_o1", "encode_order1", "entry"),
+]
+ENTRY_N = (100, 517, 33000, 131072, 200000)
+CHR20_BP = 64_444_167     # GRCh38 chr20, the cfg4 genome's length
+ENTRY_LANES = (128, 256, 1024)
+QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
 
 
 def log(*a):
@@ -67,9 +105,10 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def main_path_streams(rng, sizes):
+def main_path_streams(rng, sizes, raw_qual=False):
     """Streams of the given sizes of 2-bit packed SEQ (order 0) and 2-bit
-    packed 4-bin QUAL (order 1), as ACGT and PACK1 hand them to rANS."""
+    packed 4-bin QUAL (order 1), as ACGT and PACK1 hand them to rANS; with
+    `raw_qual` the QUAL streams are the quality text itself (4 symbols)."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import pack
     g = synth.genome(rng, 16 * MIB)
@@ -80,6 +119,9 @@ def main_path_streams(rng, sizes):
         s = g[starts[:, None] + np.arange(150)[None, :]].reshape(-1)
         seqs.append(pack.pack_np(pack.BASE2BIT[s], 2)[:nbytes].tobytes())
         q = synth.qual_rows(rng, reads, 150).reshape(-1)
+        if raw_qual:
+            quals.append(q[:nbytes].tobytes())
+            continue
         codes = np.searchsorted(np.array([35, 45, 56, 70]), q).astype(np.uint8)
         quals.append(pack.pack_np(codes, 2)[:nbytes].tobytes())
     return seqs, quals
@@ -92,72 +134,145 @@ def edge_streams(rng):
     return out + [b"\x07" * 5000, rng.integers(0, 256, 300000, np.uint8).tobytes()]
 
 
-def phase_kernels(rng):
+def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
+    """Run kernel `name` and its plain version on the card on the same
+    inputs; fail unless they agree byte for byte (and a decode gives back
+    `datas`). Returns (max_abs_err, kernel ms, plain ms)."""
     from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
+    kfn = getattr(rans_cuda, name)
+    if is_enc:
+        b = rt.prepare_encode(datas, order, lanes)
+        dev = [t.cuda() for t in (b.data, b.meta, b.tab)]
+
+        def kern():
+            return kfn(*dev, b.n_words, b.n_states)
+
+        def plain():
+            return rt.encode_plain(order, *dev, b.n_words, b.n_states)
+        kw, kp, ks = kern()
+        pw, pp, ps = plain()
+        torch.cuda.synchronize()
+        got = rt.finish_encode(b, kw, kp, ks)
+        want = rt.finish_encode(b, pw, pp, ps)
+        err = max(int((kp - pp).abs().max()) if kp.numel() else 0,
+                  int((ks.long() - ps.long()).abs().max()) if ks.numel() else 0)
+    else:
+        bufs = rans_cuda.encode_many(datas, order, "cuda", lanes)
+        d = rt.prepare_decode(bufs)
+        ddev = [t.cuda() for t in (d.words, d.meta, d.tab, d.s2s)]
+
+        def kern():
+            return kfn(*ddev, d.n_out)
+
+        def plain():
+            return rt.decode_plain(order, *ddev, d.n_out)
+        ko, po = kern(), plain()
+        torch.cuda.synchronize()
+        got, want = rt.finish_decode(d, ko), rt.finish_decode(d, po)
+        err = int((ko.long() - po.long()).abs().max()) if ko.numel() else 0
+        if got != datas:
+            raise SystemExit(f"{name}: decode differs from input")
+    if got != want or err:
+        raise SystemExit(f"{name}: kernel differs from plain "
+                         f"(max_abs_err {err})")
+    ms = cuda_ms(kern, reps) if reps else None
+    pms = cuda_ms(plain, 1) if time_plain and reps else None
+    return err, ms, pms
+
+
+def phase_kernels(rng):
+    """Phase 2. Returns {(kernel name, label): (max_abs_err, ms, plain ms)}
+    for the timed labels."""
     seqs, quals = main_path_streams(
         rng, [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)])
+    _, raw = main_path_streams(
+        rng, [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)],
+        raw_qual=True)
     one_seq, one_qual = main_path_streams(rng, [VB_STREAM])
     edges = edge_streams(rng)
-    rows = []
-    for name, order, is_enc, replaces in KERNEL_ROWS:
+    meas = {}
+    for name, order, is_enc in KERNEL_ROWS:
         main = seqs if order == 0 else quals
         one = one_seq if order == 0 else one_qual
-        for label, datas, lanes in (("main", main, None), ("vb", one, None),
-                                    ("edge", edges, None), ("edge16", edges, 16),
-                                    ("edge8192", edges, 8192)):
-            b = rt.prepare_encode(datas, order, lanes)
-            dev = [t.cuda() for t in (b.data, b.meta, b.tab)]
-            kfn = getattr(rans_cuda, name)
-            if is_enc:
-                def kern():
-                    return kfn(*dev, b.n_words, b.n_states)
-
-                def plain():
-                    return rt.encode_plain(order, *dev, b.n_words, b.n_states)
-                kw, kp, ks = kern()
-                pw, pp, ps = plain()
-                torch.cuda.synchronize()
-                got = rt.finish_encode(b, kw, kp, ks)
-                want = rt.finish_encode(b, pw, pp, ps)
-                err = max(int((kp - pp).abs().max()) if kp.numel() else 0,
-                          int((ks.long() - ps.long()).abs().max()) if ks.numel() else 0)
-            else:
-                bufs = rans_cuda.encode_many(datas, order, "cuda", lanes)
-                d = rt.prepare_decode(bufs)
-                ddev = [t.cuda() for t in (d.words, d.meta, d.tab, d.s2s)]
-
-                def kern():
-                    return kfn(*ddev, d.n_out)
-
-                def plain():
-                    return rt.decode_plain(order, *ddev, d.n_out)
-                ko, po = kern(), plain()
-                torch.cuda.synchronize()
-                got, want = rt.finish_decode(d, ko), rt.finish_decode(d, po)
-                err = int((ko.long() - po.long()).abs().max()) if ko.numel() else 0
-                if got != datas:
-                    raise SystemExit(f"{name} {label}: decode differs from input")
-            if got != want or err:
-                raise SystemExit(f"{name} {label}: kernel differs from plain "
-                                 f"(max_abs_err {err})")
+        cases = [("main", main, None), ("vb", one, None)]
+        if order == 1:
+            cases.append(("palette", raw, None))
+        cases += [("edge", edges, None), ("edge16", edges, 16),
+                  ("edge8192", edges, 8192)]
+        for label, datas, lanes in cases:
+            timed = label in ("main", "vb", "palette")
+            err, ms, pms = check_kernel(name, order, is_enc, datas, lanes,
+                                        reps=5 if timed else 0)
             log(f"kernel {name} {label}: R={len(datas)} equal to plain, "
                 f"max_abs_err {err}")
-            if label == "main":
-                ms = cuda_ms(kern, 5)
-                pms = cuda_ms(plain, 1)
-                mb = sum(map(len, datas)) / 1e6
-                log(f"kernel {name}: {ms:.3f} ms ({mb / ms:.1f} GB/s of symbols), "
-                    f"plain {pms:.3f} ms, R={R}, {mb:.1f} MB")
-                rows.append({"name": name, "route": "cuda",
-                             "source": "genozip_tpu_torch/csrc/rans.cu",
-                             "replaces": replaces, "max_abs_err": err,
-                             "ms": round(ms, 4), "plain_ms": round(pms, 4)})
-            elif label == "vb":
-                ms = cuda_ms(kern, 5)
-                mb = len(datas[0]) / 1e6
+            if not timed:
+                continue
+            meas[(name, label)] = (err, ms, pms)
+            mb = sum(map(len, datas)) / 1e6
+            if label == "vb":
                 log(f"kernel {name}: {ms:.3f} ms ({mb / ms:.2f} GB/s of "
-                    f"symbols) at R=1, one {mb:.2f} MB VB stream (main path)")
-    return rows
+                    f"symbols) at R=1, one {mb:.2f} MB VB stream (main path), "
+                    f"plain {pms:.3f} ms")
+            else:
+                log(f"kernel {name} {label}: {ms:.3f} ms ({mb / ms:.1f} GB/s "
+                    f"of symbols), plain {pms:.3f} ms, R={R}, {mb:.1f} MB")
+    return meas
+
+
+def phase_entry(rng):
+    """Phase 5: the single-stream entry points and the fixed-lane
+    encode_many on the card, each against its plain version on the card and
+    the input; then kernel and plain times at one VB stream at N = 1024.
+    Returns {(kernel name, label): (max_abs_err, ms, plain ms)}."""
+    from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
+
+    def plain_encode(data, order, lanes):
+        b = rt.prepare_encode([data], order, lanes)
+        out = rt.encode_plain(order, *(t.cuda() for t in (b.data, b.meta,
+                                                           b.tab)),
+                              b.n_words, b.n_states)
+        return rt.finish_encode(b, *out)[0]
+
+    def plain_decode(buf):
+        d = rt.prepare_decode([buf])
+        out = rt.decode_plain(d.order, *(t.cuda() for t in (
+            d.words, d.meta, d.tab, d.s2s)), d.n_out)
+        return rt.finish_decode(d, out)[0]
+
+    fns = ((0, rans_cuda.encode, rans_cuda.decode),
+           (1, rans_cuda.encode_order1, rans_cuda.decode_order1))
+    n_checked = 0
+    for n in ENTRY_N:
+        data = rng.choice(QUALS, n).tobytes()
+        for lanes in ENTRY_LANES:
+            for order, enc, dec in fns:
+                buf = enc(data, n_lanes=lanes, device="cuda")
+                if buf != plain_encode(data, order, lanes):
+                    raise SystemExit(f"entry order-{order} encode n={n} "
+                                     f"N={lanes}: differs from plain")
+                out = dec(buf, device="cuda")
+                if out != data or plain_decode(buf) != data:
+                    raise SystemExit(f"entry order-{order} decode n={n} "
+                                     f"N={lanes}: differs from the input")
+                n_checked += 1
+    seqs, _ = main_path_streams(rng, [int(rng.integers(1 * MIB, 4 * MIB + 1))
+                                      for _ in range(R)])
+    many = rans_cuda.encode_many(seqs, 0, "cuda", n_lanes=1024)
+    if many != [plain_encode(d, 0, 1024) for d in seqs]:
+        raise SystemExit("entry encode_many(n_lanes=1024): differs from plain")
+    log(f"entry: encode/decode/encode_order1/decode_order1 equal to plain "
+        f"and the input at {n_checked} (n, N, order) cases; "
+        f"encode_many(n_lanes=1024) equal to plain at R={R}")
+    meas = {("rans_encode_o0", "entry_many"): check_kernel(
+        "rans_encode_o0", 0, True, seqs, 1024)}
+    one_seq, one_qual = main_path_streams(rng, [VB_STREAM])
+    for name, order, is_enc in KERNEL_ROWS:
+        datas = one_seq if order == 0 else one_qual
+        meas[(name, "entry")] = m = check_kernel(name, order, is_enc, datas,
+                                                 1024)
+        log(f"entry {name}: {m[1]:.3f} ms, plain {m[2]:.3f} ms, one "
+            f"{len(datas[0]) / 1e6:.2f} MB VB stream at N=1024")
+    return meas
 
 
 def run_cli(args, capture=False):
@@ -180,11 +295,172 @@ def same_file(a, b):
     return subprocess.run(["cmp", "-s", a, b]).returncode == 0
 
 
+def head_records(path, k):
+    with open(path, "rb") as f:
+        return b"".join(f.readline() for _ in range(4 * k))
+
+
+def phase_cfg3(tmp, smi):
+    """Phases 3 and 4. Returns the launch counts of the full run."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import rans_cuda
+    # 3. device equals host
+    fq = os.path.join(tmp, "reads64.fastq")
+    synth.write_fastq(fq, 64 * MIB, seed=64)
+    za, zb = fq + ".cuda.gxz", fq + ".cpu.gxz"
+    t = time.time()
+    run_cli(["zip", fq, "-o", za, "--device", "cuda", "-q"])
+    tc = time.time() - t
+    t = time.time()
+    run_cli(["zip", fq, "-o", zb, "--device", "cpu", "-q"])
+    th = time.time() - t
+    if not same_file(za, zb):
+        raise SystemExit("device equals host: CUDA and CPU archives differ")
+    log(f"device equals host: 64 MiB archives equal "
+        f"({os.path.getsize(za)} bytes; zip cuda {tc:.1f} s, cpu {th:.1f} s)")
+    for p in (fq, za, zb):
+        os.remove(p)
+
+    # 4. full run
+    fq = os.path.join(tmp, "reads512.fastq")
+    t = time.time()
+    size = synth.write_fastq(fq, 512 * MIB, seed=512)
+    log(f"full run: generated {size} bytes in {time.time() - t:.1f} s")
+    z, out = fq + ".gxz", fq + ".out"
+    torch.cuda.synchronize()
+    rans_cuda.reset_launches()
+    t = time.time()
+    run_cli(["zip", fq, "-o", z, "--device", "cuda", "-q"])
+    tz = time.time() - t
+    t = time.time()
+    run_cli(["unzip", z, "-o", out, "--device", "cuda"])
+    tu = time.time() - t
+    head = run_cli(["cat", z, "--head", "1000", "--device", "cuda"], True)
+    ls = run_cli(["ls", z], True).decode()
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    if not same_file(fq, out):
+        raise SystemExit("full run: unzip output differs from the input")
+    if head != head_records(fq, 1000):
+        raise SystemExit("full run: cat --head 1000 differs from the input")
+    if str(size) not in ls.replace(",", ""):
+        raise SystemExit(f"full run: ls does not show {size} bytes:\n{ls}")
+    zsize = os.path.getsize(z)
+    log(f"full run: zip {size / 1e6 / tz:.2f} MB/s ({tz:.1f} s), unzip "
+        f"{size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio {size / zsize:.3f}, "
+        f"on {smi}")
+    log("full run: ls", ls.strip().splitlines()[-1])
+    log(f"full run: launches {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"full run: kernels never launched: {missing}")
+    for p in (fq, z, out):
+        os.remove(p)
+    return counts
+
+
+def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=256):
+    """Phase 6. Returns the launch counts of the paired run."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.zip_pipeline import profiler
+    rng = np.random.default_rng(20)
+    t = time.time()
+    g = synth.genome(rng, genome_bp)
+    fa = os.path.join(tmp, "chr20like.fa")
+    synth.write_fasta(fa, g)
+    log(f"cfg4: {genome_bp} bp genome generated in {time.time() - t:.1f} s")
+    ref = os.path.join(tmp, "chr20like.ref.gxz")
+    t = time.time()
+    run_cli(["zip", "--make-reference", fa, "-o", ref, "--device", "cuda"],
+            True)
+    tref = time.time() - t
+    log(f"cfg4: make-reference {tref:.1f} s -> {os.path.getsize(ref)} bytes")
+    os.remove(fa)
+
+    r1, r2 = os.path.join(tmp, "cfg4_R1.fastq"), os.path.join(tmp, "cfg4_R2.fastq")
+    t = time.time()
+    size = synth.write_paired_fastq(r1, r2, g, pair_mib * MIB, seed=4)
+    log(f"cfg4: generated 2 x {pair_mib} MiB ({size} bytes) in "
+        f"{time.time() - t:.1f} s")
+    z, out = os.path.join(tmp, "cfg4.gxz"), os.path.join(tmp, "cfg4.out")
+    torch.cuda.synchronize()
+    profiler.reset()
+    rans_cuda.reset_launches()
+    t = time.time()
+    run_cli(["zip", r1, r2, "--pair", "--reference", ref, "-o", z,
+             "--device", "cuda", "--vblock", "16", "-q"])
+    tz = time.time() - t
+    zip_regions = profiler.report()
+    profiler.reset()
+    t = time.time()
+    run_cli(["unzip", z, "-o", out, "--reference", ref, "--device", "cuda"])
+    tu = time.time() - t
+    unzip_regions = profiler.report()
+    head1 = run_cli(["cat", z, "--r1", "--head", "1000", "--reference", ref,
+                     "--device", "cuda"], True)
+    ilv = run_cli(["cat", z, "--interleave", "--head", "1000", "--reference",
+                   ref, "--device", "cuda"], True)
+    ls = run_cli(["ls", z], True).decode()
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    for i, src in enumerate((r1, r2), start=1):
+        if not same_file(src, f"{out}.{i}"):
+            raise SystemExit(f"cfg4: unzip of component {i} differs")
+    if head1 != head_records(r1, 1000):
+        raise SystemExit("cfg4: cat --r1 --head 1000 differs from R1")
+    a, b = head_records(r1, 500), head_records(r2, 500)
+    la, lb = a.splitlines(keepends=True), b.splitlines(keepends=True)
+    want = b"".join(b"".join(la[i:i + 4] + lb[i:i + 4])
+                    for i in range(0, len(la), 4))
+    if ilv != want:
+        raise SystemExit("cfg4: cat --interleave --head 1000 differs")
+    if str(size) not in ls.replace(",", ""):
+        raise SystemExit(f"cfg4: ls does not show {size} bytes:\n{ls}")
+    zsize = os.path.getsize(z)
+    log(f"cfg4: make-reference {tref:.1f} s, zip --pair --reference "
+        f"{size / 1e6 / tz:.2f} MB/s ({tz:.1f} s), unzip "
+        f"{size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio {size / zsize:.3f}, "
+        f"on {smi}")
+    log("cfg4: zip --show-time regions:\n" + zip_regions)
+    log("cfg4: unzip --show-time regions:\n" + unzip_regions)
+    log("cfg4: ls", ls.strip().splitlines()[-1])
+    log(f"cfg4: launches {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"cfg4: kernels never launched: {missing}")
+    for p in (r1, r2, z, out + ".1", out + ".2"):
+        os.remove(p)
+
+    # 2 x 16 MiB: device equals host, and --REFERENCE without --reference
+    s1, s2 = os.path.join(tmp, "s_R1.fastq"), os.path.join(tmp, "s_R2.fastq")
+    synth.write_paired_fastq(s1, s2, g, 16 * MIB, seed=16)
+    za, zb = os.path.join(tmp, "s.cuda.gxz"), os.path.join(tmp, "s.cpu.gxz")
+    for dev, zz in (("cuda", za), ("cpu", zb)):
+        t = time.time()
+        run_cli(["zip", s1, s2, "--pair", "--reference", ref, "-o", zz,
+                 "--device", dev, "--vblock", "16", "-q"])
+        log(f"cfg4: 2 x 16 MiB zip --device {dev} {time.time() - t:.1f} s")
+    if not same_file(za, zb):
+        raise SystemExit("cfg4: CUDA and CPU paired archives differ")
+    zs = os.path.join(tmp, "s.stored.gxz")
+    run_cli(["zip", s1, "--reference", ref, "--REFERENCE", "-o", zs,
+             "--device", "cuda", "-q"])
+    run_cli(["unzip", zs, "-o", zs + ".out", "--device", "cuda"])
+    if not same_file(s1, zs + ".out"):
+        raise SystemExit("cfg4: --REFERENCE archive did not unzip without "
+                         "--reference")
+    log(f"cfg4: 2 x 16 MiB archives equal from cuda and cpu "
+        f"({os.path.getsize(za)} bytes); --REFERENCE archive "
+        f"({os.path.getsize(zs)} bytes) unzipped without --reference")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
         return 2
-    from genozip_tpu_torch import codecs, synth
+    from genozip_tpu_torch import codecs
     from genozip_tpu_torch.ops import rans_cuda
 
     # 1. setup
@@ -206,64 +482,25 @@ def main():
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(2024)
-    rows = phase_kernels(rng)
+    meas = phase_kernels(rng)
 
     with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp:
-        # 3. device equals host
-        fq = os.path.join(tmp, "reads64.fastq")
-        synth.write_fastq(fq, 64 * MIB, seed=64)
-        za, zb = fq + ".cuda.gxz", fq + ".cpu.gxz"
-        t = time.time()
-        run_cli(["zip", fq, "-o", za, "--device", "cuda", "-q"])
-        tc = time.time() - t
-        t = time.time()
-        run_cli(["zip", fq, "-o", zb, "--device", "cpu", "-q"])
-        th = time.time() - t
-        if not same_file(za, zb):
-            raise SystemExit("device equals host: CUDA and CPU archives differ")
-        log(f"device equals host: 64 MiB archives equal "
-            f"({os.path.getsize(za)} bytes; zip cuda {tc:.1f} s, cpu {th:.1f} s)")
-        os.remove(zb)
-
-        # 4. full run
-        fq = os.path.join(tmp, "reads512.fastq")
-        t = time.time()
-        size = synth.write_fastq(fq, 512 * MIB, seed=512)
-        log(f"full run: generated {size} bytes in {time.time() - t:.1f} s")
-        z, out = fq + ".gxz", fq + ".out"
-        torch.cuda.synchronize()
-        rans_cuda.reset_launches()
-        t = time.time()
-        run_cli(["zip", fq, "-o", z, "--device", "cuda", "-q"])
-        tz = time.time() - t
-        t = time.time()
-        run_cli(["unzip", z, "-o", out, "--device", "cuda"])
-        tu = time.time() - t
-        head = run_cli(["cat", z, "--head", "1000", "--device", "cuda"], True)
-        ls = run_cli(["ls", z], True).decode()
-        torch.cuda.synchronize()
-        counts = dict(rans_cuda.launches)
-        if not same_file(fq, out):
-            raise SystemExit("full run: unzip output differs from the input")
-        with open(fq, "rb") as f:
-            want = b"".join(f.readline() for _ in range(4000))
-        if head != want:
-            raise SystemExit("full run: cat --head 1000 differs from the input")
-        if str(size) not in ls.replace(",", ""):
-            raise SystemExit(f"full run: ls does not show {size} bytes:\n{ls}")
-        zsize = os.path.getsize(z)
-        log(f"full run: zip {size / 1e6 / tz:.2f} MB/s ({tz:.1f} s), unzip "
-            f"{size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio {size / zsize:.3f}, "
-            f"on {smi}")
-        log("full run: ls", ls.strip().splitlines()[-1])
-        log(f"full run: launches {counts}")
-        missing = [k for k, v in counts.items() if v <= 0]
-        if missing:
-            raise SystemExit(f"full run: kernels never launched: {missing}")
-        if "jax" in sys.modules:
-            raise SystemExit("jax was imported")
-    for r in rows:
-        r["launches"] = counts[r["name"]]
+        counts3 = phase_cfg3(tmp, smi)              # 3 and 4
+        meas.update(phase_entry(rng))               # 5
+        counts4 = phase_cfg4(tmp, smi)              # 6
+    if "jax" in sys.modules:
+        raise SystemExit("jax was imported")
+    rows = []
+    for line, name, entry, label in TPU_ROWS:
+        err, ms, pms = meas[(name, label)]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "genozip_tpu_torch/csrc/rans.cu",
+                     "replaces": f"{PALLAS}{line}", "port_kernel": name,
+                     "entry": f"genozip_tpu_torch.ops.rans_cuda.{entry}",
+                     "shape": label, "launches": counts4[name],
+                     "launches_cfg3": counts3[name], "max_abs_err": err,
+                     "ms": round(ms, 4), "plain_ms": round(pms, 4)})
+    print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

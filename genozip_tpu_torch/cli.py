@@ -1,9 +1,12 @@
-"""CLI: zip / unzip / cat / ls for single-end FASTQ.
+"""CLI: zip / unzip / cat / ls for FASTQ, single-end or paired, with or
+without a reference genome, and `zip --make-reference` for FASTA.
 
-Counterpart of genozip_tpu/cli.py. `--device` names where the rANS kernels
-run: `cuda` (default; raises when no GPU is present) or `cpu` (the kernels'
-plain PyTorch versions). The archive bytes are the same either way. Options
-of the reference whose paths are not ported yet raise "not yet ported".
+Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
+where the rANS kernels run: `cuda` (default; raises when no GPU is present)
+or `cpu` (the kernels' plain PyTorch versions). The archive bytes are the
+same either way. Options of the reference whose paths are not ported yet
+raise "not yet ported". GXZ_REFERENCE names the reference when --reference
+is not given.
 """
 
 import argparse
@@ -11,7 +14,7 @@ import os
 import sys
 
 # zip options of genozip_tpu whose paths this package has not ported yet
-_ZIP_NOT_PORTED = ("reference", "pair", "deep", "bamass")
+_ZIP_NOT_PORTED = ("deep", "bamass")
 
 
 def _device_arg(p):
@@ -26,7 +29,10 @@ def build_parser():
 
     z = sub.add_parser("zip", help="compress")
     z.add_argument("input")
-    z.add_argument("input2", nargs="*", default=[], help=argparse.SUPPRESS)
+    z.add_argument("input2", nargs="*", default=[],
+                   help="R2 FASTQ with --pair")
+    z.add_argument("--pair", action="store_true",
+                   help="co-compress paired R1/R2 FASTQ files")
     z.add_argument("-o", "--output")
     z.add_argument("--vblock", type=int, default=None, help="VB size in MB")
     z.add_argument("--stats", action="store_true")
@@ -40,9 +46,18 @@ def build_parser():
                    help="suppress progress output")
     z.add_argument("-@", "--threads", type=int, default=None,
                    help="seg worker threads (default: all cores)")
-    z.add_argument("--reference", default=None, help=argparse.SUPPRESS)
+    z.add_argument("--reference", default=None,
+                   help="align SEQ against this .ref.gxz")
+    z.add_argument("--REFERENCE", "--store-reference", dest="store_ref",
+                   action="store_true",
+                   help="also store the used reference ranges in the archive "
+                        "so unzip needs no .ref file (REF_EXT_STORE)")
+    z.add_argument("--make-reference", action="store_true",
+                   help="compress a FASTA into a .ref.gxz reference")
+    z.add_argument("--optimize", action="store_true",
+                   help="LOSSY: bin QUAL to the Illumina 8-level scheme (the "
+                        "archive digest covers the modified data)")
     z.add_argument("--bamass", default=None, help=argparse.SUPPRESS)
-    z.add_argument("--pair", action="store_true", help=argparse.SUPPRESS)
     z.add_argument("--deep", action="store_true", help=argparse.SUPPRESS)
     _device_arg(z)
 
@@ -51,6 +66,7 @@ def build_parser():
     u.add_argument("-o", "--output")
     u.add_argument("--test", action="store_true", help="verify only")
     u.add_argument("--show-time", action="store_true")
+    u.add_argument("--reference", default=None)
     _device_arg(u)
 
     c = sub.add_parser("cat", help="decompress to stdout")
@@ -68,17 +84,28 @@ def build_parser():
                    help="one QUAL line per record")
     c.add_argument("--one-vb", type=int, default=None,
                    help="reconstruct a single VB")
+    c.add_argument("--r1", action="store_true",
+                   help="emit only R1 of a paired archive")
+    c.add_argument("--r2", action="store_true",
+                   help="emit only R2 of a paired archive")
+    c.add_argument("--interleave", action="store_true",
+                   help="interleave R1/R2 records of a paired archive")
+    c.add_argument("--reference", default=None)
     _device_arg(c)
 
     l = sub.add_parser("ls", help="list archive metadata")
     l.add_argument("inputs", nargs="+")
     l.add_argument("--stats", action="store_true",
                    help="per-context compressed-size table (SEC_STATS)")
+    l.add_argument("--reference", default=None,
+                   help="accepted; ls reads only metadata")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.reference is None and os.environ.get("GXZ_REFERENCE"):
+        args.reference = os.environ["GXZ_REFERENCE"]
     if getattr(args, "quiet", False):
         from genozip_tpu.utils import progress as _prog
         _prog.set_quiet(True)
@@ -86,33 +113,17 @@ def main(argv=None):
         from . import codecs
         codecs.enable_device_rans(args.device)
     if args.cmd == "zip":
-        unported = [f for f in _ZIP_NOT_PORTED if getattr(args, f)]
-        if unported or args.input2:
-            what = "--" + unported[0] if unported else "more than one input"
-            raise NotImplementedError(
-                f"zip {what}: not yet ported to genozip_tpu_torch")
-        from .zip_pipeline import zip_file
-        if args.fast:
-            from .codecs import assign as _assign
-            _assign.set_mode("fast")
-        out = args.output or args.input + ".gxz"
-        vb = (args.vblock * (1 << 20)) if args.vblock else None
-        zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
-                 threads=args.threads)
-        if args.test:
-            from .piz_pipeline import piz_file
-            piz_file(out, None)
-            print("verified: round-trip digest OK")
+        _zip(args)
     elif args.cmd == "unzip":
         from .piz_pipeline import piz_file
         if args.test:
-            piz_file(args.input, None)
+            piz_file(args.input, None, reference=args.reference)
             print("verified: round-trip digest OK")
             return 0
         out = args.output or args.input.removesuffix(".gxz")
         if out == args.input:
             out = args.input + ".out"
-        piz_file(args.input, out)
+        piz_file(args.input, out, reference=args.reference)
     elif args.cmd == "cat":
         from .filters import cat_filtered
         cat_filtered(args, sys.stdout.buffer)
@@ -122,6 +133,47 @@ def main(argv=None):
         from genozip_tpu.utils import profiler
         print(profiler.report())
     return 0
+
+
+def _zip(args):
+    unported = [f for f in _ZIP_NOT_PORTED if getattr(args, f)]
+    if unported:
+        raise NotImplementedError(
+            f"zip --{unported[0]}: not yet ported to genozip_tpu_torch")
+    if args.make_reference:
+        from .ref.refstore import make_reference
+        out = args.output or args.input + ".ref.gxz"
+        ref = make_reference(args.input, out)
+        print(f"reference: {ref.length:,} bases, "
+              f"{len(ref.contigs)} contigs -> {out}")
+        return
+    if args.pair and len(args.input2) != 1:
+        raise ValueError("--pair needs two FASTQ inputs")
+    if args.input2 and not args.pair:
+        raise NotImplementedError(
+            "zip of more than one input: not yet ported to genozip_tpu_torch")
+    if args.pair and args.store_ref:
+        # genozip_tpu's zip_pair drops --REFERENCE without a word and writes
+        # an archive that still needs the .ref file
+        raise ValueError("--REFERENCE is not supported with --pair")
+    from .zip_pipeline import zip_file, zip_pair
+    if args.fast:
+        from .codecs import assign as _assign
+        _assign.set_mode("fast")
+    out = args.output or args.input + ".gxz"
+    vb = (args.vblock * (1 << 20)) if args.vblock else None
+    if args.pair:
+        zip_pair(args.input, args.input2[0], out, vb_size=vb,
+                 show_stats=args.stats, reference=args.reference,
+                 threads=args.threads, optimize=args.optimize)
+    else:
+        zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
+                 threads=args.threads, reference=args.reference,
+                 store_ref=args.store_ref, optimize=args.optimize)
+    if args.test:
+        from .piz_pipeline import piz_file
+        piz_file(out, None, reference=args.reference)
+        print("verified: round-trip digest OK")
 
 
 def _ls(args):

@@ -1,4 +1,5 @@
-"""Datatype plugin registry (FASTQ only so far).
+"""Datatype plugin registry: FASTQ, single-end or paired, with or without a
+reference genome.
 
 Counterpart of genozip_tpu/datatypes/__init__.py. Other datatypes are
 detected as the reference detects them and refused with "not yet ported".

@@ -1,8 +1,11 @@
-"""FASTQ datatype plugin, without a reference.
+"""FASTQ datatype plugin.
 
-Counterpart of genozip_tpu/datatypes/fastq.py for single-end FASTQ: the same
-seg and recon, so archives are byte-identical. The aligner (--reference),
---deep and --bamass paths are not ported yet and raise.
+Counterpart of genozip_tpu/datatypes/fastq.py: the same seg and recon, so
+archives are byte-identical. SEQ is stored verbatim (NONREF) or, with a
+reference, as aligner placements plus mismatches (SQBITMAP, GPOS, STRAND,
+SEQNM, SEQMISP, SEQMISB, the spliced-alignment contexts and NONREF for
+unaligned reads); R2 of a pair gets R1's placements as a hint. The --deep
+and --bamass paths are not ported yet and raise.
 Reference parity: src/fastq.c (line-quad parsing :1002, seg :1249),
 src/fastq_seq.c (SEQ methods), src/fastq_qual.c, src/fastq_desc.c.
 Design: the whole VB is parsed in one pass (newline scan →
@@ -16,8 +19,10 @@ import numpy as np
 
 from . import DataType, VBSegResult, register
 from genozip_tpu import native
-from genozip_tpu.utils import ragged
+from genozip_tpu.utils import profiler, ragged
 from ..contexts import VBCtx, MODE_DICT, MODE_NUM, MODE_TXT, dedup_col
+from ..ops import pack as packops
+from ..ref import aligner as al
 from ..seg import tokenizer_seg_col, tokenizer_recon_col
 
 
@@ -25,6 +30,9 @@ from ..seg import tokenizer_seg_col, tokenizer_recon_col
 class FastqDT(DataType):
     NAME = "fastq"
     EXTS = (".fastq", ".fq")
+    ref = None              # RefGenome when zipped or unzipped --reference
+    missing_ref = None      # the archive's reference name when none was given
+    pair_gpos_hint = None   # R2: R1's GPOS per read (-1 unaligned)
 
     def segconf_scan(self, sample):
         """FASTQ calibration: read-length profile, long-read detection
@@ -55,6 +63,27 @@ class FastqDT(DataType):
         if self.segconf.get("is_long_reads"):
             return max(base or 0, 64 << 20)
         return base
+
+    def optimize_vb(self, data: np.ndarray) -> np.ndarray:
+        """--optimize: Illumina 8-level QUAL binning on line 4 of each
+        record (reference sam_modify.c optimize_phred_quality_string)."""
+        from ..optimize import PHRED_LUT
+        nl = np.nonzero(data == ord("\n"))[0]
+        if nl.shape[0] == 0:
+            return data
+        # qual lines are every 4th line (records are whole in a VB)
+        starts = np.concatenate([[0], nl[:-1] + 1])
+        q = np.arange(nl.shape[0]) % 4 == 3
+        qs, qe = starts[q], nl[q]
+        total = int((qe - qs).sum())
+        if total == 0:
+            return data
+        idx = ragged.arange(total) - np.repeat(
+            np.concatenate([[0], np.cumsum(qe - qs)])[:-1], qe - qs) + \
+            np.repeat(qs, qe - qs)
+        data = data.copy() if not data.flags.writeable else data
+        data[idx] = PHRED_LUT[data[idx]]
+        return data
 
     def vb_boundary(self, data: np.ndarray, is_eof: bool) -> int:
         if is_eof:
@@ -97,7 +126,11 @@ class FastqDT(DataType):
         d = np.diff(seq_lens, prepend=np.int64(0))
         ctxs["LENS"] = VBCtx("LENS", MODE_NUM, local=d, cat="int", param=1)
 
-        ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=seq.data, cat="seq")
+        if self.ref is not None and n:
+            self._seg_seq_aligned(ctxs, seq, self.ref)
+        else:
+            ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=seq.data,
+                                   cat="seq")
         ctxs["QUAL"] = self._seg_qual(seq, qual)
         meta = {"no_final_nl": bool(no_final_nl)}
         return VBSegResult(ctxs, n, meta)
@@ -224,16 +257,97 @@ class FastqDT(DataType):
             return ragged.Col(data, offs)
         return pc.txt_col(lens)
 
+    def _seg_seq_aligned(self, ctxs, seq, ref):
+        """Reference-based SEQ seg (reference parity: fastq_seq.c:45
+        fastq_seg_SEQ aligner path; aligner.c:767 aligner_seg_seq)."""
+        seq_mat, lens = ragged.to_matrix(seq)
+        codes = packops.BASE2BIT[seq_mat]
+        pair_hint = self.pair_gpos_hint
+        if pair_hint is not None and pair_hint.shape[0] != len(seq):
+            pair_hint = None
+        with profiler.timer("zip:align"):
+            res = al.align_batch(ref, codes, lens, pair_gpos=pair_hint,
+                                 splice=True)
+        aligned, gpos, is_fwd = res["aligned"], res["gpos"], res["is_fwd"]
+        gpos2, junction = res["gpos2"], res["junction"]
+        if ref.track_used:      # REF_EXT_STORE: the genome ranges used
+            ref.mark_used(gpos[aligned], junction[aligned])
+            sp2 = aligned & (junction < lens)
+            if sp2.any():
+                ref.mark_used(gpos2[sp2], (lens - junction)[sp2])
+        ridx, mpos, mbase = al.mismatch_lists(
+            ref, seq_mat, codes, lens, gpos, is_fwd, aligned, gpos2, junction)
+        nm = np.bincount(ridx, minlength=len(seq))[aligned]
+
+        ctxs["SQBITMAP"] = VBCtx("SQBITMAP", MODE_NUM,
+                                 local=aligned.astype(np.int64), cat="int")
+        ctxs["GPOS"] = VBCtx("GPOS", MODE_NUM, local=gpos[aligned], cat="int")
+        ctxs["STRAND"] = VBCtx("STRAND", MODE_NUM,
+                               local=is_fwd[aligned].astype(np.int64), cat="int")
+        ctxs["SEQNM"] = VBCtx("SEQNM", MODE_NUM, local=nm, cat="int")
+        ctxs["SEQMISP"] = VBCtx("SEQMISP", MODE_NUM, local=mpos, cat="int")
+        ctxs["SEQMISB"] = VBCtx("SEQMISB", MODE_TXT, local=mbase, cat="text")
+        spliced = aligned & (junction < lens)
+        if spliced.any():
+            # 2-segment (intron) alignments (aligner.c:514): per aligned
+            # read a spliced flag; per spliced read junction + signed gap
+            ctxs["SPLICED"] = VBCtx("SPLICED", MODE_NUM,
+                                    local=spliced[aligned].astype(np.int64),
+                                    cat="int")
+            ctxs["SPLJ"] = VBCtx("SPLJ", MODE_NUM, local=junction[spliced],
+                                 cat="int")
+            ctxs["SPLG"] = VBCtx("SPLG", MODE_NUM,
+                                 local=gpos2[spliced] - gpos[spliced],
+                                 cat="int")
+        nonref = ragged.take(seq, np.nonzero(~aligned)[0])
+        ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=nonref.data, cat="seq")
+
+    def _recon_seq_aligned(self, pctxs, lens):
+        """PIZ aligner path (reference parity: fastq_seq.c:346
+        fastq_recon_aligned_SEQ: genome gather + mismatch patches)."""
+        ref = self.ref
+        if ref is None:
+            name = f" {self.missing_ref}" if self.missing_ref else ""
+            raise ValueError(f"archive was compressed with --reference{name}:"
+                             " give that reference with --reference")
+        aligned = pctxs["SQBITMAP"].nums().astype(bool)
+        n = aligned.shape[0]
+        gpos = pctxs["GPOS"].nums()
+        is_fwd = pctxs["STRAND"].nums().astype(bool)
+        nm = pctxs["SEQNM"].nums()
+        mpos = pctxs["SEQMISP"].nums()
+        mbase = pctxs["SEQMISB"].local
+        a_lens = lens[aligned]
+        mm_ridx = np.repeat(np.arange(gpos.shape[0]), nm)
+        gpos2 = junction = None
+        if "SPLICED" in pctxs:
+            spl = pctxs["SPLICED"].nums().astype(bool)
+            junction = a_lens.astype(np.int64).copy()
+            junction[spl] = pctxs["SPLJ"].nums()
+            gpos2 = gpos.copy()
+            gpos2[spl] = gpos[spl] + pctxs["SPLG"].nums()
+        with profiler.timer("piz:ref-recon"):
+            mat = al.reconstruct_batch(ref, gpos, a_lens, is_fwd,
+                                       mm_ridx, mpos, mbase, gpos2, junction)
+        a_col = ragged.from_matrix(mat, a_lens)
+        un_idx = np.nonzero(~aligned)[0]
+        nonref = pctxs["NONREF"].txt_col(lens[un_idx])
+        return ragged.merge_rows(n, [(np.nonzero(aligned)[0], a_col),
+                                     (un_idx, nonref)])
+
     def recon_vb(self, pctxs: dict, meta: dict) -> bytes:
         n = meta["num_lines"]
         lens = pctxs["LENS"].nums()
         desc = self._recon_desc(pctxs, lens, n)
         plus = pctxs["PLUS"].dict_take()
-        if "DEEP" in pctxs or "SQBITMAP" in pctxs:
+        if "DEEP" in pctxs:
             raise NotImplementedError(
-                "FASTQ archive made with --deep or --reference: not yet "
-                "ported to genozip_tpu_torch")
-        seq = pctxs["NONREF"].txt_col(lens)
+                "FASTQ archive made with --deep: not yet ported to "
+                "genozip_tpu_torch")
+        if "SQBITMAP" in pctxs:
+            seq = self._recon_seq_aligned(pctxs, lens)
+        else:
+            seq = pctxs["NONREF"].txt_col(lens)
         qual = self.qual_col(pctxs, seq, lens)
         out = ragged.interleave([desc, seq, plus, qual],
                                 sep_after=[b"\n", b"\n", b"\n", b"\n"])

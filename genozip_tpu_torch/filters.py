@@ -1,10 +1,12 @@
 """`cat` output filters for FASTQ archives: --head/--tail/--grep/--downsample/
---header-only/--seq-only/--qual-only/--one-vb.
+--header-only/--seq-only/--qual-only/--one-vb, and for paired archives
+--r1/--r2 (one component) and --interleave (records alternating R1/R2).
 
-Counterpart of genozip_tpu/filters.py `cat_filtered` (reference
-src/writer.c:544-663). --tail and --downsample without --grep are plan edits
-(writer_plan.py): VBs wholly outside the range are never reconstructed.
---grep is a per-record predicate applied by the plan executor.
+Counterpart of genozip_tpu/filters.py `cat_filtered` and `cat_interleaved`
+(reference src/writer.c:544-663). --tail and --downsample without --grep are
+plan edits (writer_plan.py): VBs wholly outside the range are never
+reconstructed. --grep is a per-record predicate applied by the plan executor.
+Every filter applies to interleaved records too.
 """
 
 from . import writer_plan as wp
@@ -12,7 +14,7 @@ from .piz_pipeline import PizReader
 
 
 def cat_filtered(args, out):
-    pr = PizReader(args.input)
+    pr = PizReader(args.input, getattr(args, "reference", None))
     try:
         _cat(pr, args, out)
     finally:
@@ -26,18 +28,27 @@ def _cat(pr, args, out):
     head = getattr(args, "head", None)
     downsample = getattr(args, "downsample", None)
     tail = getattr(args, "tail", None)
-    plan = wp.build_plan(pr)
+    paired = pr.file_hdr.get("pair")
+    interleave = getattr(args, "interleave", False)
+    for flag in ("r1", "r2", "interleave"):
+        if getattr(args, flag, False) and not paired:
+            raise ValueError(f"--{flag} needs a paired archive")
+    if interleave:
+        plan = wp.build_interleave_plan(pr)
+    else:
+        plan = wp.build_plan(pr, 1 if getattr(args, "r2", False) else 0)
     predicate = None
-    if grep is not None:
+    if grep is not None and not downsample:
         predicate = (lambda rec: grep in rec)
-        if downsample:
-            # downsample the raw record ordinals, then --grep
-            state = {"i": 0}
+    elif downsample and (grep is not None or interleave):
+        # downsample the raw record ordinals, then --grep
+        state = {"i": 0}
 
-            def predicate(rec: bytes) -> bool:
-                state["i"] += 1
-                return (state["i"] - 1) % downsample == 0 and grep in rec
-    elif downsample or tail:
+        def predicate(rec: bytes) -> bool:
+            state["i"] += 1
+            return (state["i"] - 1) % downsample == 0 and \
+                (grep is None or grep in rec)
+    elif (downsample or tail) and not interleave:
         counts = wp.vb_record_counts(pr, plan)
         if downsample:
             plan = wp.edit_downsample(plan, downsample, counts)
@@ -45,7 +56,7 @@ def _cat(pr, args, out):
             plan = wp.edit_tail(plan, tail, counts)
             tail = None
     if getattr(args, "header_only", False):
-        out.write(pr.txt_header())
+        out.write(pr.txt_header(0))
         return
     if getattr(args, "one_vb", None):
         plan = [it for it in plan if it.vb_i == args.one_vb]

@@ -1,5 +1,31 @@
-"""The four rANS kernels (csrc/rans.cu) bound to PyTorch, and the batched
-encode/decode that the codecs call. Counterpart of `genozip_tpu.ops.rans_pallas`.
+"""The four rANS kernels (csrc/rans.cu) bound to PyTorch, the batched
+encode/decode that the codecs call, and the single-stream entry points.
+Counterpart of `genozip_tpu.ops.rans_pallas`.
+
+Entry points and the TPU kernels (`rans_pallas.py` device functions) whose
+function each one computes:
+
+* `encode_many(datas, order, device, n_lanes)` -> `rans_encode_o0` /
+  `rans_encode_o1`: `encode_many_device_v6` :1764, `encode_many_o1_device_v6`
+  :1925, `encode_many_o1_device` :3108, and with a fixed `n_lanes` the pre-v6
+  `encode_many_device` :2466.
+* `decode_many(bufs, device)` -> `rans_decode_o0` / `rans_decode_o1`:
+  `decode_many_device_v6` :1391, `decode_many_device` :1231,
+  `decode_many_o1_device_v6` :1603, `decode_many_o1_device` :2908.
+* `encode(data, n_lanes, device)` -> `rans_encode_o0` at R = 1:
+  `encode_order0_device` :2677.
+* `decode(buf, device)` -> `rans_decode_o0` at R = 1, any lane count:
+  `decode_order0_device` :377 and its variants v2 :350, v3 :769, v4 :743 and
+  v5 :717 (tiling and lookup choices of one function; the kernel's 4096-slot
+  table in shared memory replaces v4's two-level lookup).
+* `encode_order1(data, n_lanes, device)` -> `rans_encode_o1` at R = 1:
+  `encode_order1_device` :1008.
+* `decode_order1(buf, device)` -> `rans_decode_o1` at R = 1:
+  `decode_order1_device` :883.
+
+The Pallas wrappers' tiling and selection knobs (`S`, `v1`..`v5`,
+`interpret`) have no counterpart, and the decoders take every lane count of
+the stream format (16..8192), not only N >= 128.
 
 The library is built with nvcc for sm_90a at first use, from the sources in
 this package, into `genozip_tpu_torch/build/`, and loaded with ctypes. Each
@@ -208,7 +234,9 @@ def _device_errors(device, what: str):
 
 def encode_many(datas, order: int, device, n_lanes: int | None = None) -> list:
     """Encode R payloads in one launch on `device`; each result equals
-    `rans_np.encode(d, order, n_lanes=n_lanes)`."""
+    `rans_np.encode(d, order, n_lanes=n_lanes)`. With order 0 and a fixed
+    `n_lanes` this is also the counterpart of the pre-v6 multi-stream
+    `rans_pallas.encode_many`."""
     b = rans_torch.prepare_encode(datas, order, n_lanes)
     fn = rans_encode_o0 if order == 0 else rans_encode_o1
     with _device_errors(device, fn.__name__):
@@ -225,3 +253,31 @@ def decode_many(bufs, device) -> list:
         out = fn(b.words.to(device), b.meta.to(device), b.tab.to(device),
                  b.s2s.to(device), b.n_out)
         return rans_torch.finish_decode(b, out)
+
+
+def _one_stream(buf, order: int, device) -> bytes:
+    if len(buf) < 2 or buf[1] != order:
+        raise ValueError(f"not an order-{order} rANS stream")
+    return decode_many([buf], device)[0]
+
+
+def encode(data, n_lanes: int = 1024, device="cuda") -> bytes:
+    """Order-0 encode of one stream; equals `rans_np.encode(data, 0,
+    n_lanes=n_lanes)`."""
+    return encode_many([data], 0, device, n_lanes)[0]
+
+
+def decode(buf, device="cuda") -> bytes:
+    """Order-0 decode of one stream of any lane count."""
+    return _one_stream(buf, 0, device)
+
+
+def encode_order1(data, n_lanes: int = 1024, device="cuda") -> bytes:
+    """Order-1 encode of one stream; equals `rans_np.encode(data, 1,
+    n_lanes=n_lanes)`."""
+    return encode_many([data], 1, device, n_lanes)[0]
+
+
+def decode_order1(buf, device="cuda") -> bytes:
+    """Order-1 decode of one stream of any lane count."""
+    return _one_stream(buf, 1, device)

@@ -1,11 +1,14 @@
-"""PIZ pipeline: reconstruct a FASTQ file from a GXZ archive.
+"""PIZ pipeline: reconstruct the FASTQ file(s) of a GXZ archive.
 
-Counterpart of genozip_tpu/piz_pipeline.py for single-component archives
-without a reference: read the global area (dicts) once, then per VB read and
-uncompress the context sections, reconstruct with the datatype plugin and
-verify the VB digest; the whole-file digest is checked at the end. A VB's
-RANS0 and RANS1 sections of the device size decode in one launch per order,
-whatever their number.
+Counterpart of genozip_tpu/piz_pipeline.py: read the global area (dicts)
+once, then per VB read and uncompress the context sections, reconstruct with
+the datatype plugin and verify the VB digest; each component's digest is
+checked at the end. A VB's RANS0 and RANS1 sections of the device size decode
+in one launch per order, whatever their number. Archives made with
+--reference take the genome from --reference or, when the archive stores the
+ranges it used (--REFERENCE), from the archive. Paired (R2) components
+resolve "pair-identical" sections from the R1 component and add R1 GPOS back
+to delta-coded R2 GPOS (reference src/piz.c:450-544).
 
 Reference parity: src/piz.c:880 piz_one_txt_file / :381 piz_reconstruct_one_vb.
 """
@@ -26,36 +29,70 @@ from . import codecs
 from .contexts import PCtx, parse_dict_payload
 from .datatypes import get
 from .format import sections as fmt
+from .ops import pack as packops
+from .ref.refstore import RefGenome, load_ref_file
 
 
 def _not_ported(what):
     return NotImplementedError(f"{what}: not yet ported to genozip_tpu_torch")
 
 
+def _stored_ref(payload: bytes) -> RefGenome:
+    """REF_EXT_STORE: the genome ranges an archive stores (contigs json,
+    (start, len) ranges, 2-bit codes per range); bases outside them are 0."""
+    ml = int.from_bytes(payload[0:4], "little")
+    meta = fmt.json_parse(payload[4:4 + ml])
+    codes = np.zeros(meta["length"], np.uint8)
+    off = 4 + ml
+    for s, l in meta["ranges"]:
+        nb = (l + 3) // 4
+        codes[s:s + l] = packops.unpack_np(
+            np.frombuffer(payload[off:off + nb], np.uint8), 2, l)
+        off += nb
+    return RefGenome(codes, meta["contigs"])
+
+
 class PizReader:
-    def __init__(self, z_path: str):
+    """An open archive. `reference` is the .ref.gxz to reconstruct against;
+    it is needed only when the archive was made with --reference and stores
+    no genome ranges, and only once a VB is reconstructed."""
+
+    def __init__(self, z_path: str, reference: str | None = None):
         self.f = open(z_path, "rb")
         try:
-            self._open()
+            self._open(reference)
         except BaseException:
             self.f.close()
             raise
 
-    def _open(self):
+    def _open(self, reference):
         self.zr = fmt.ZReader(self.f)
         payload, _ = self.zr.read_one(fmt.SEC_FILE_HEADER)
         if payload is None:
             raise ValueError("missing file header")
         self.file_hdr = h = fmt.json_parse(payload)
-        for key, what in (("reference", "archive made with --reference"),
-                          ("ref_internal", "archive with an internal reference"),
-                          ("ref_stored", "archive with a stored reference"),
-                          ("components", "multi-component archive (--pair/--deep)"),
+        for key, what in (("ref_internal", "archive with an internal reference"),
+                          ("deep", "--deep archive"),
                           ("gencomp", "archive with gencomp components"),
                           ("enc", "encrypted archive")):
             if h.get(key):
                 raise _not_ported(what)
-        self.dt = get(h["dt"])(h.get("segconf") or {})
+        if h.get("components") and not h.get("pair"):
+            raise _not_ported("multi-component archive")
+        ref = None
+        if h.get("ref_stored") and not reference:
+            ref = _stored_ref(self.zr.read_one(fmt.SEC_REFERENCE)[0])
+        elif reference:
+            with profiler.timer("ref:load"):
+                ref = load_ref_file(reference)
+        segconf = h.get("segconf") or {}
+        self.dts = []
+        for comp in self.components():
+            cdt = get(comp.get("dt", h["dt"]))(comp.get("segconf") or segconf)
+            cdt.ref = ref
+            cdt.missing_ref = h.get("reference") if ref is None else None
+            self.dts.append(cdt)
+        self.dt = self.dts[0]
         self.io_lock = threading.Lock()
         self.dicts = {}
         for ent in self.zr.sections(fmt.SEC_DICT):
@@ -69,19 +106,35 @@ class PizReader:
             d = self.dicts[name] = Col.from_list([])  # ctx with zero words
         return d
 
-    def txt_header(self) -> bytes:
-        payload, _ = self.zr.read_one(fmt.SEC_TXT_HEADER)
+    def txt_header(self, comp_i: int = 0) -> bytes:
+        payload, _ = self.zr.read_one(fmt.SEC_TXT_HEADER, comp_i=comp_i)
+        if payload is None:
+            payload, _ = self.zr.read_one(fmt.SEC_TXT_HEADER)
         return payload or b""
 
     def num_vbs(self) -> int:
         return self.file_hdr["num_vbs"]
 
-    def _load_ctx_sections(self, vb_i, names=None):
+    def components(self):
+        """One entry per component (two for a paired archive): name,
+        txt_len, adler, num_lines."""
+        h = self.file_hdr
+        return h.get("components") or [
+            {"name": h.get("txt_name"), "txt_len": h["txt_len"],
+             "adler": h["adler"], "num_lines": h["num_lines"]}]
+
+    def comp_num_vbs(self, comp_i: int) -> int:
+        comps = self.components()
+        if comp_i < len(comps):
+            return comps[comp_i].get("num_vbs", self.num_vbs())
+        return self.num_vbs()
+
+    def _load_ctx_sections(self, vb_i, comp_i=0, names=None):
         """Read and uncompress a VB's B250/LOCAL sections. Returns
         {name: {'b250': arr, 'local': (arr, ltype)}}. RANS0/RANS1 sections
         of the device size decode in one launch per order."""
         raws = []
-        for ent in self.zr.sections(vb_i=vb_i, comp_i=0):
+        for ent in self.zr.sections(vb_i=vb_i, comp_i=comp_i):
             if ent.sec_type not in (fmt.SEC_B250, fmt.SEC_LOCAL):
                 continue
             name = ent.dict_id.rstrip(b"\0").decode()
@@ -117,30 +170,40 @@ class PizReader:
                               meta["ltype"])
         return out
 
-    def load_vb(self, vb_i: int):
-        """I/O + decompress phase (thread-safe under self.io_lock)."""
+    def load_vb(self, vb_i: int, comp_i: int = 0):
+        """I/O + decompress phase (thread-safe under self.io_lock). An R2
+        VB also loads the R1 sections it copies."""
         with self.io_lock:
             payload, _ = self.zr.read_one(fmt.SEC_VB_HEADER, vb_i=vb_i,
-                                          comp_i=0)
-            if payload is None:
+                                          comp_i=comp_i)
+            if payload is None and comp_i == 0:
                 payload, _ = self.zr.read_one(fmt.SEC_VB_HEADER, vb_i=vb_i)
+            if payload is None:
+                raise ValueError(f"VB {vb_i} of component {comp_i} missing")
             vb_hdr = fmt.vbhdr_parse(payload)
-            if any("pair" in cm for cm in vb_hdr["ctxs"].values()):
-                raise _not_ported("paired archive")
             with profiler.timer("piz:read+uncompress"):
-                sec = self._load_ctx_sections(vb_i)
-        return vb_hdr, sec
+                sec = self._load_ctx_sections(vb_i, comp_i)
+                pair_names = [n for n, cm in vb_hdr["ctxs"].items()
+                              if "pair" in cm]
+                pair_sec = self._load_ctx_sections(vb_i, 0, pair_names) \
+                    if pair_names else {}
+        return vb_hdr, sec, pair_sec
 
-    def read_vb(self, vb_i: int) -> bytes:
-        return self.recon_loaded_vb(self.load_vb(vb_i), vb_i)
+    def read_vb(self, vb_i: int, comp_i: int = 0) -> bytes:
+        return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i, comp_i)
 
-    def recon_loaded_vb(self, loaded, vb_i: int) -> bytes:
-        vb_hdr, sec = loaded
+    def recon_loaded_vb(self, loaded, vb_i: int, comp_i: int = 0) -> bytes:
+        vb_hdr, sec, pair_sec = loaded
         pctxs = {}
         for name, cm in vb_hdr["ctxs"].items():
             pc = PCtx(name, cm["mode"], param=cm.get("param", 0),
                       special=cm.get("special"))
             src = sec.get(name, {})
+            pair = cm.get("pair")
+            if pair == "copy_b250":
+                src = {**src, "b250": pair_sec.get(name, {}).get("b250")}
+            elif pair == "copy_local":
+                src = {**src, "local": pair_sec.get(name, {}).get("local")}
             if cm.get("same") is not None:
                 val, cnt = cm["same"]
                 pc.b250 = np.full(cnt, val, dtype=np.int64)
@@ -153,8 +216,10 @@ class PizReader:
             pctxs[name] = pc
         meta = dict(vb_hdr["meta"])
         meta["num_lines"] = vb_hdr["n"]
+        if meta.get("gpos_pair_delta") and comp_i == 1:
+            self._apply_gpos_pair_delta(pctxs, vb_i)
         with profiler.timer("piz:recon"):
-            out = self.dt.recon_vb(pctxs, meta)
+            out = self.dts[comp_i].recon_vb(pctxs, meta)
         if len(out) != vb_hdr["len"]:
             raise ValueError(f"VB {vb_i}: length {len(out)} != {vb_hdr['len']}")
         if vb_hdr.get("x64") is not None and native.available():
@@ -164,30 +229,54 @@ class PizReader:
             raise ValueError(f"VB {vb_i}: digest mismatch")
         return out
 
+    def _apply_gpos_pair_delta(self, pctxs, vb_i):
+        """R2 GPOS was stored as a delta against R1's GPOS for reads aligned
+        in both (reference fastq_seg_gpos_R2, fastq_seq.c:187)."""
+        with self.io_lock:
+            r1 = self._load_ctx_sections(vb_i, 0, ["SQBITMAP", "GPOS"])
+        a1 = r1["SQBITMAP"]["local"][0].astype(bool)
+        g1 = np.zeros(a1.shape[0], np.int64)
+        g1[a1] = r1["GPOS"]["local"][0].astype(np.int64)
+        a2 = pctxs["SQBITMAP"].nums().astype(bool)
+        both = a2 & a1
+        g2 = pctxs["GPOS"].local.astype(np.int64)
+        pctxs["GPOS"].local = np.where(both[a2], g2 + g1[a2], g2)
+        pctxs["GPOS"].param = 0
+
     def close(self):
         self.f.close()
 
 
-def piz_file(z_path: str, out_path: str | None = None) -> int:
-    """Reconstruct the archive's file into `out_path` (None: verify only).
+def piz_file(z_path: str, out_path: str | None = None,
+             reference: str | None = None) -> int:
+    """Reconstruct the archive's file into `out_path` (None: verify only);
+    a paired archive's components go to `out_path`.1 and `out_path`.2.
     Returns the bytes reconstructed."""
-    pr = PizReader(z_path)
+    pr = PizReader(z_path, reference)
     try:
-        return _piz(pr, out_path)
+        comps = pr.components()
+        total = 0
+        for comp_i in range(len(comps)):
+            path = out_path
+            if out_path and len(comps) > 1:
+                path = f"{out_path}.{comp_i + 1}"
+            total += _piz(pr, comp_i, path)
+        return total
     finally:
         pr.close()
 
 
-def _piz(pr, out_path):
+def _piz(pr, comp_i, out_path):
     h = pr.file_hdr
+    comp = pr.components()[comp_i]
     if out_path and out_path.endswith((".gz", ".bgz", ".bam")):
         raise _not_ported("gz output")
     sink = open(out_path, "wb") if out_path else None
     try:
-        md5 = hashlib.md5() if h.get("md5") else None
+        md5 = hashlib.md5() if comp_i == 0 and h.get("md5") else None
         adler = zlib.adler32(b"")
         total = 0
-        hdr = pr.txt_header()
+        hdr = pr.txt_header(comp_i) if comp_i == 0 else b""
         if hdr:
             adler = zlib.adler32(hdr, adler)
             total += len(hdr)
@@ -200,7 +289,7 @@ def _piz(pr, out_path):
         workers = min(os.cpu_count() or 2, 8)
 
         def work(vb_i):
-            return pr.recon_loaded_vb(pr.load_vb(vb_i), vb_i)
+            return pr.recon_loaded_vb(pr.load_vb(vb_i, comp_i), vb_i, comp_i)
 
         def drain(fut):
             nonlocal adler, total
@@ -215,7 +304,7 @@ def _piz(pr, out_path):
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             inflight = deque()
-            for vb_i in range(1, pr.num_vbs() + 1):
+            for vb_i in range(1, pr.comp_num_vbs(comp_i) + 1):
                 inflight.append(pool.submit(work, vb_i))
                 while len(inflight) > workers:
                     drain(inflight.popleft())
@@ -224,10 +313,10 @@ def _piz(pr, out_path):
     finally:
         if sink:
             sink.close()
-    if total != h["txt_len"]:
-        raise ValueError("length mismatch")
-    if h.get("adler") is not None and adler != h["adler"]:
-        raise ValueError("digest mismatch")
+    if total != comp["txt_len"]:
+        raise ValueError(f"component {comp_i}: length mismatch")
+    if comp.get("adler") is not None and adler != comp["adler"]:
+        raise ValueError(f"component {comp_i}: digest mismatch")
     if md5 is not None and md5.hexdigest() != h["md5"]:
         raise ValueError("MD5 mismatch")
     return total

@@ -1,11 +1,19 @@
-"""Synthetic single-end FASTQ in the shape of bench config cfg3.
+"""Synthetic inputs in the shape of bench configs cfg3 and cfg4.
 
-150 bp reads sampled off a repeat-family genome, 0.3% substitution errors,
-half of them reverse-complemented, 4-bin Illumina quality with a positional
-ramp, and QNAMEs that cycle through four flavours per block of reads
-(Illumina, BGI fixed-width, SRA with length=, ONT uuid-like). A re-implementation
-of bench.py's generator (its `_genome`, `_qual_rows`, `gen_fastq`), made from
-a numpy seed, for the port's tests and chip_smoke.py.
+cfg3 (`write_fastq`): single-end FASTQ of 150 bp reads sampled off a
+repeat-family genome, 0.3% substitution errors, half of them
+reverse-complemented, 4-bin Illumina quality with a positional ramp, and
+QNAMEs that cycle through four flavours per block of reads (Illumina, BGI
+fixed-width, SRA with length=, ONT uuid-like).
+
+cfg4 (`write_fasta` + `write_paired_fastq`): the genome as a FASTA for
+--make-reference, and proper pairs off it: R1 forward at p, R2
+reverse-complemented at p + 150..350, 150 bp each, 0.3% errors, 4-bin
+quality, Illumina QNAMEs with /1 and /2.
+
+A vectorized re-implementation of bench.py's generators (its `_genome`,
+`_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`), made from a
+numpy seed, for the port's tests and chip_smoke.py.
 """
 
 import numpy as np
@@ -93,5 +101,67 @@ def write_fastq(path: str, nbytes: int, seed: int = 2024,
                             for j in range(n))
             f.write(body)
             size += len(body)
+            i += 1
+    return size
+
+
+def _reads(rng, g: np.ndarray, starts: np.ndarray, rl: int, err: float = 0.003):
+    """(n, rl) reads off genome `g` at `starts`, with substitution errors."""
+    n = starts.shape[0]
+    mat = g[starts[:, None] + np.arange(rl)[None, :]]
+    nerr = rng.binomial(n * rl, err)
+    mat[rng.integers(0, n, nerr), rng.integers(0, rl, nerr)] = \
+        _BASES[rng.integers(0, 4, nerr)]
+    return mat
+
+
+def write_fasta(path: str, g: np.ndarray) -> int:
+    """Genome `g` (ACGT bytes) as a one-contig FASTA with 60-base lines.
+    Returns the bytes written."""
+    G = g.shape[0]
+    rows = g[: G - G % 60].reshape(-1, 60)
+    block = np.empty((rows.shape[0], 61), np.uint8)
+    block[:, :60] = rows
+    block[:, 60] = ord("\n")
+    tail = g[G - G % 60:]
+    with open(path, "wb") as f:
+        f.write(b">chrB test benchmark contig\n")
+        f.write(block.tobytes())
+        if tail.shape[0]:
+            f.write(tail.tobytes() + b"\n")
+        return f.tell()
+
+
+def write_paired_fastq(p1: str, p2: str, g: np.ndarray, nbytes: int,
+                       seed: int = 2024, block: int = 10000) -> int:
+    """Write proper read pairs off genome `g` to `p1` (R1) and `p2` (R2)
+    until both files hold at least 2 * `nbytes` together, in blocks of
+    `block` pairs. Returns the bytes written to both."""
+    rng = np.random.default_rng(seed)
+    rl = 150
+    G = g.shape[0]
+    size = i = 0
+    with open(p1, "wb") as f1, open(p2, "wb") as f2:
+        while size < 2 * nbytes:
+            n = block
+            starts = rng.integers(0, G - rl - 400, n)
+            gaps = rng.integers(150, 350, n)
+            q1, q2 = qual_rows(rng, n, rl), qual_rows(rng, n, rl)
+            m1 = _reads(rng, g, starts, rl)
+            m2 = _reads(rng, g, starts + gaps, rl)
+            m2 = packops.ACGT[(packops.BASE2BIT[m2] ^ 3)[:, ::-1]]
+            r = np.arange(i * n, i * n + n)
+            names = [b"@SIM:2:FCPAIR:1:%d:%d:%d" % t for t in zip(
+                (2100 + r // 100000).tolist(), (15000 + r % 90000).tolist(),
+                (1000 + (r * 7) % 90000).tolist())]
+            c1 = b"".join(b"%s/1\n%s\n+\n%s\n" % (nm, m1[j].tobytes(),
+                                                   q1[j].tobytes())
+                          for j, nm in enumerate(names))
+            c2 = b"".join(b"%s/2\n%s\n+\n%s\n" % (nm, m2[j].tobytes(),
+                                                   q2[j].tobytes())
+                          for j, nm in enumerate(names))
+            f1.write(c1)
+            f2.write(c2)
+            size += len(c1) + len(c2)
             i += 1
     return size

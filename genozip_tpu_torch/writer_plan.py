@@ -1,27 +1,32 @@
 """Recon-plan IR + executor: the writer backbone of `cat`.
 
-Counterpart of genozip_tpu/writer_plan.py for single-component archives
-(reference src/writer.c:866 writer_create_plan, :1203 writer_main_loop). A
-plan is a list of typed items built from the archive and edited by the
-positional filters (--tail/--downsample); per-record predicates (--grep) and
-projections (--seq-only/--qual-only) are applied by the executor.
+Counterpart of genozip_tpu/writer_plan.py (reference src/writer.c:866
+writer_create_plan, :1203 writer_main_loop). A plan is a list of typed items
+built from the archive (one component, or a paired archive's two components
+interleaved, the reference's PLAN_INTERLEAVE) and edited by the positional
+filters (--tail/--downsample); per-record predicates (--grep) and
+projections (--seq-only/--qual-only) are applied by the executor, to
+interleaved records as to any others.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
+from genozip_tpu.utils import ragged
 from .format import sections as fmt
 
 # plan item kinds
 TXTHEADER = "txthdr"      # emit the txt header
 VB_RANGE = "vb"           # records start.. step `step` of one VB
+INTERLEAVE = "ilv"        # alternate records of (vb, comp 0) and (vb, comp 1)
 
 
 @dataclass
 class PlanItem:
     kind: str
     vb_i: int = 0
+    comp_i: int = 0
     start: int = 0            # record index within the VB
     step: int = 1             # downsample stride (on raw record ordinals)
     phase: int = 0            # stride phase carried across VBs
@@ -47,10 +52,17 @@ def records_of(buf: bytes, lines_per_rec: int):
             ends[lines_per_rec - 1::lines_per_rec][:nrec])
 
 
-def build_plan(pr):
-    """Full-file plan: header + every VB."""
-    return [PlanItem(TXTHEADER)] + [PlanItem(VB_RANGE, vb_i=vb_i)
-                                    for vb_i in range(1, pr.num_vbs() + 1)]
+def build_plan(pr, comp_i: int = 0):
+    """Full plan of one component: header + every VB."""
+    return [PlanItem(TXTHEADER, comp_i=comp_i)] + [
+        PlanItem(VB_RANGE, vb_i=vb_i, comp_i=comp_i)
+        for vb_i in range(1, pr.comp_num_vbs(comp_i) + 1)]
+
+
+def build_interleave_plan(pr):
+    """Paired archive: records alternate R1/R2, VB by VB."""
+    return [PlanItem(INTERLEAVE, vb_i=vb_i)
+            for vb_i in range(1, pr.num_vbs() + 1)]
 
 
 def edit_downsample(plan, k: int, counts):
@@ -81,8 +93,9 @@ def edit_tail(plan, k: int, counts):
         seen += cnt
         if seen <= first:
             continue
-        out.append(PlanItem(VB_RANGE, vb_i=it.vb_i, start=max(first - lo, 0),
-                            step=it.step, phase=it.phase))
+        out.append(PlanItem(VB_RANGE, vb_i=it.vb_i, comp_i=it.comp_i,
+                            start=max(first - lo, 0), step=it.step,
+                            phase=it.phase))
     return out
 
 
@@ -94,8 +107,9 @@ def vb_record_counts(pr, plan):
         if it.kind != VB_RANGE:
             counts.append(0)
             continue
-        payload, _ = pr.zr.read_one(fmt.SEC_VB_HEADER, vb_i=it.vb_i, comp_i=0)
-        if payload is None:
+        payload, _ = pr.zr.read_one(fmt.SEC_VB_HEADER, vb_i=it.vb_i,
+                                    comp_i=it.comp_i)
+        if payload is None and it.comp_i == 0:
             payload, _ = pr.zr.read_one(fmt.SEC_VB_HEADER, vb_i=it.vb_i)
         # vb_hdr["n"] counts records (a FASTQ record is the 4-line read)
         counts.append(fmt.vbhdr_parse(payload)["n"])
@@ -127,18 +141,23 @@ def execute_plan(pr, plan, out, lines_per_rec: int = 1, predicate=None,
         out.write(rec)
         return not (head and emitted >= head)
 
+    whole = predicate is None and head is None and tail is None and \
+        transform is None
     for it in plan:
         if it.kind == TXTHEADER:
-            hdr = pr.txt_header()
+            hdr = pr.txt_header(it.comp_i)
             if hdr and not no_header:
                 out.write(hdr)
             continue
-        buf = pr.read_vb(it.vb_i)
-        if (it.start == 0 and it.step == 1 and predicate is None and head is None and tail is None
-                and transform is None):
+        if it.kind == INTERLEAVE:
+            buf, starts, ends = _interleaved(pr, it.vb_i, lines_per_rec)
+        else:
+            buf = pr.read_vb(it.vb_i, it.comp_i)
+        if whole and it.start == 0 and it.step == 1:
             out.write(buf)
             continue
-        starts, ends = records_of(buf, lines_per_rec)
+        if it.kind != INTERLEAVE:
+            starts, ends = records_of(buf, lines_per_rec)
         stop = False
         for r in range(it.start, starts.shape[0]):
             if it.step > 1 and (r + it.phase) % it.step != 0:
@@ -154,3 +173,23 @@ def execute_plan(pr, plan, out, lines_per_rec: int = 1, predicate=None,
     for rec in tail_buf:
         out.write(rec)
     return emitted
+
+
+def _interleaved(pr, vb_i: int, lines_per_rec: int):
+    """VB `vb_i` of both components, records alternating R1/R2: (bytes,
+    record starts, record ends)."""
+    cols = []
+    for comp_i in (0, 1):
+        b = pr.read_vb(vb_i, comp_i)
+        st, en = records_of(b, lines_per_rec)
+        cols.append(ragged.gather_ranges(np.frombuffer(b, np.uint8), st,
+                                         en - st))
+    if len(cols[0]) != len(cols[1]):
+        raise ValueError(f"VB {vb_i}: R1 has {len(cols[0])} records, R2 "
+                         f"{len(cols[1])}")
+    merged = ragged.interleave(cols)
+    first = merged.offsets[:-1]
+    second = first + cols[0].lens
+    starts = np.stack([first, second], axis=1).reshape(-1)
+    ends = np.stack([second, merged.offsets[1:]], axis=1).reshape(-1)
+    return merged.data.tobytes(), starts, ends

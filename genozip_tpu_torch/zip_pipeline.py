@@ -1,20 +1,29 @@
-"""ZIP pipeline: compress a single-end FASTQ file into a GXZ archive.
+"""ZIP pipeline: compress a FASTQ file, or a pair of them, into a GXZ archive.
 
-Counterpart of genozip_tpu/zip_pipeline.py `zip_file`, for the path without a
-reference: per-VB seg on a thread pool, deterministic in-order dict merge,
-per-context codec assignment committed on first sight, section write, then the
-global area (dicts, counts, stats, file header). A VB's whole-section RANS0
-and RANS1 payloads of the device size go to the card in one launch per order.
-The archive bytes equal genozip_tpu's with its device path off.
+Counterpart of genozip_tpu/zip_pipeline.py `zip_file` and `zip_pair`:
+per-VB seg on a thread pool, deterministic in-order dict merge, per-context
+codec assignment committed on first sight, section write, then the global
+area (dicts, counts, stats, a stored reference, file header). With
+--reference, SEQ is aligned against the genome on the host; with
+--REFERENCE the genome ranges the file used are stored in the archive. A VB's
+whole-section RANS0 and RANS1 payloads of the device size go to the card in
+one launch per order. The archive bytes equal genozip_tpu's with its device
+path off.
+
+`zip_pair` co-compresses R1/R2 FASTQ (reference src/fastq.c:224-245): R2 VBs
+are built 1:1 with R1 VBs by read count, byte-identical R2 sections are
+dropped ("pair-identical", zip.c:223-234) and R2 GPOS is delta-coded against
+R1's ("pair-assisted").
 
 Reference parity: src/zip.c:721 zip_one_file / :510 zip_compress_one_vb.
 """
 
+import copy
+import os
 import time
 import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-import os
 
 import numpy as np
 
@@ -27,6 +36,8 @@ from .codecs import assign as codec_assign
 from .contexts import ZCtxGlobal, narrow_int
 from .datatypes import detect, get
 from .format import sections as fmt
+from .ops import pack as packops
+from .ref.refstore import load_ref_file
 
 FLAG_DELTA = 1
 
@@ -47,7 +58,7 @@ class ZipStats:
 
 
 class ZipJob:
-    """Shared state for writing one archive."""
+    """Shared state for writing one archive (one or two components)."""
 
     def __init__(self, out_path: str):
         self.out = open(out_path, "wb")
@@ -104,8 +115,20 @@ class ZipJob:
             pre[name] = (codec, arr, payload, blob)
         return pre
 
-    def build_vb(self, res, data, vb_i, pre_locals=None):
+    def write_vb(self, res, data, vb_i, comp_i=0, pre_locals=None,
+                 pair_payloads=None, collect=False):
+        """Write one VB's sections. `pair_payloads`: R1's payload map, for
+        dropping R2 sections equal to R1's; `collect` returns this VB's
+        {(name, sec_type): payload} map."""
+        built = self.build_vb(res, data, vb_i, comp_i, pre_locals,
+                              pair_payloads, collect)
+        self.flush_vb(built)
+        return built["out_payloads"]
+
+    def build_vb(self, res, data, vb_i, comp_i=0, pre_locals=None,
+                 pair_payloads=None, collect=False):
         """Dict merge (VB order = determinism) + section planning."""
+        out_payloads = {} if collect else None
         ctx_meta = {}
         # (sec_type, name, payload, codec, ltype, flags, units, blob|None)
         pending = []
@@ -120,11 +143,19 @@ class ZipJob:
                 b250_g = lut[c.b250]
                 payload_arr = narrow_int(b250_g)
                 payload = payload_arr.tobytes()
-                if b250_g.shape[0] and (b250_g == b250_g[0]).all():
+                key = (name, fmt.SEC_B250)
+                all_same = b250_g.shape[0] and (b250_g == b250_g[0]).all()
+                if collect:
+                    # elided sections cannot serve as pair-copy sources
+                    out_payloads[key] = None if all_same else payload
+                if all_same:
                     # all-the-same: no section, value+count ride in the VB
                     # header (reference ctx_drop_all_the_same, context.c)
                     ctx_meta[name]["same"] = [int(b250_g[0]),
                                               int(b250_g.shape[0])]
+                elif pair_payloads is not None and \
+                        pair_payloads.get(key) == payload:
+                    ctx_meta[name]["pair"] = "copy_b250"
                 else:
                     codec = g.pick_codec("b250", payload, "b250")
                     pending.append((fmt.SEC_B250, name, payload, codec,
@@ -139,6 +170,13 @@ class ZipJob:
                     if c.mode == "num":
                         local = narrow_int(local)
                     payload = local.tobytes()
+                key = (name, fmt.SEC_LOCAL)
+                if collect:
+                    out_payloads[key] = payload
+                if pair_payloads is not None and \
+                        pair_payloads.get(key) == payload:
+                    ctx_meta[name]["pair"] = "copy_local"
+                    continue
                 codec = g.pick_codec("local", payload, c.cat)
                 blob = pc[3] if pc is not None and pc[0] == codec else None
                 pending.append((fmt.SEC_LOCAL, name, payload,
@@ -152,7 +190,8 @@ class ZipJob:
         if native.available():
             vb_hdr["x64"] = native.xxh64(data)   # 64-bit per-VB digest
         return {"pending": pending, "vb_hdr": vb_hdr, "vb_i": vb_i,
-                "data_len": int(data.shape[0]), "num_lines": res.num_lines}
+                "comp_i": comp_i, "data_len": int(data.shape[0]),
+                "num_lines": res.num_lines, "out_payloads": out_payloads}
 
     def flush_vb(self, built):
         """Compress and write the VB's sections + header. The VB's
@@ -160,7 +199,7 @@ class ZipJob:
         one launch per order."""
         zw, stats = self.zw, self.stats
         pending = built["pending"]
-        vb_i = built["vb_i"]
+        vb_i, comp_i = built["vb_i"], built["comp_i"]
         precomp = {}
         bmin = codecs.device_batch_min()
         if bmin:
@@ -175,12 +214,12 @@ class ZipJob:
                 enumerate(pending):
             pc = precomp.get(i, blob)
             ent = zw.write_section(
-                sec, payload, codec=codec, vb_i=vb_i, comp_i=0,
+                sec, payload, codec=codec, vb_i=vb_i, comp_i=comp_i,
                 dict_id=name, ltype=ltype, flags=flags, precompressed=pc,
                 uncomp_len=len(payload) if pc is not None else None)
             stats.add_section(name, units, zw.offset - ent.offset)
         zw.write_section(fmt.SEC_VB_HEADER, fmt.vbhdr_pack(built["vb_hdr"]),
-                         codec=codecs.ZLIB, vb_i=vb_i, comp_i=0)
+                         codec=codecs.ZLIB, vb_i=vb_i, comp_i=comp_i)
         stats.txt_len += built["data_len"]
         stats.num_vbs += 1
         stats.num_lines += built["num_lines"]
@@ -207,40 +246,61 @@ class ZipJob:
         self.stats.z_len = zw.offset
 
 
-def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
-             show_stats: bool = False, threads: int | None = None):
-    """Compress one FASTQ file. The rANS device is whatever
-    `codecs.enable_device_rans` set (host coders only if nothing)."""
+def _open_component(in_path, reference=None, dt_name=None, ref=None):
+    """Open one input: (reader, datatype instance, datatype name). The
+    reference genome is `ref` when given, else loaded from `reference`."""
     reader = TxtReader(in_path)
     try:
-        return _zip(reader, in_path, out_path, vb_size, show_stats, threads)
+        head = reader.peek(64 * 1024)
+        dt_name = dt_name or detect(in_path, head)
+        dt = get(dt_name)()
+        if reference:
+            if ref is None:
+                with profiler.timer("ref:load"):
+                    ref = load_ref_file(reference)
+            dt.ref = ref
+        dt.segconf_scan(np.frombuffer(head, dtype=np.uint8))
+        # plaintext size estimate for vb_size auto-tuning (segconf.c:101):
+        # compressed inputs assume the typical ~3x gz ratio of genomic text
+        if reader.disk_size:
+            est = reader.disk_size * (3 if reader.is_compressed else 1)
+            dt.segconf["txt_size_est"] = int(est)
+    except BaseException:
+        reader.close()
+        raise
+    return reader, dt, dt_name
+
+
+def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
+             show_stats: bool = False, threads: int | None = None,
+             reference: str | None = None, store_ref: bool = False,
+             optimize: bool = False):
+    """Compress one FASTQ file, against `reference` (a .ref.gxz) if given;
+    `store_ref` also stores the genome ranges used (--REFERENCE). The rANS
+    device is whatever `codecs.enable_device_rans` set (host coders only if
+    nothing)."""
+    reader, dt, dt_name = _open_component(in_path, reference)
+    try:
+        dt.optimize_enabled = optimize
+        if store_ref and dt.ref is not None:
+            dt.ref.start_tracking()
+        if vb_size is None:
+            vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
+        job = ZipJob(out_path)
+        try:
+            _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
+                      reference, store_ref)
+        finally:
+            job.out.close()
     finally:
         reader.close()
-
-
-def _zip(reader, in_path, out_path, vb_size, show_stats, threads):
-    head = reader.peek(64 * 1024)
-    dt_name = detect(in_path, head)
-    dt = get(dt_name)()
-    dt.segconf_scan(np.frombuffer(head, dtype=np.uint8))
-    # plaintext size estimate for vb_size auto-tuning (segconf.c:101):
-    # compressed inputs assume the typical ~3x gz ratio of genomic text
-    if reader.disk_size:
-        est = reader.disk_size * (3 if reader.is_compressed else 1)
-        dt.segconf["txt_size_est"] = int(est)
-    if vb_size is None:
-        vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
-    job = ZipJob(out_path)
-    try:
-        _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads)
-    finally:
-        job.out.close()
     if show_stats:
         print_stats(job.stats)
     return job.stats
 
 
-def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads):
+def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
+              reference, store_ref):
     txt_header = dt.read_txt_header(reader)
     file_adler = zlib.adler32(b"")
     if txt_header:
@@ -293,7 +353,7 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads):
             with profiler.timer("zip:seg-wait"):
                 pres, pre_locals = pfut.result()
             with profiler.timer("zip:merge+write"):
-                job.flush_vb(job.build_vb(pres, pdata, vb_i, pre_locals))
+                job.write_vb(pres, pdata, vb_i, pre_locals=pre_locals)
             prog.update(int(pdata.shape[0]))
 
         for data in reader.vblocks(dt, vb_size):
@@ -316,20 +376,188 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads):
             job.zw.write_section(fmt.SEC_GZ_ISIZES, isz, codec=codecs.RANS0
                                  if len(isz) >= 64 else codecs.NONE)
 
+    ref_stored = store_ref and dt.ref is not None and \
+        _write_stored_ref(job, dt.ref)
     file_hdr = {
         "version": 2, "dt": dt_name, "num_vbs": vb_i,
         "num_lines": job.stats.num_lines, "txt_len": job.stats.txt_len,
         "adler": file_adler, "segconf": dt.segconf,
         "txt_name": in_path.rsplit("/", 1)[-1],
-        "reference": None,
+        "reference": reference.rsplit("/", 1)[-1] if reference else None,
         "ref_internal": False,
-        "ref_stored": False,
+        "ref_stored": ref_stored,
         "enc": None,
         "md5": None,
         "mgzip": mgzip,
         "gencomp": None,
     }
     job.write_global_area(file_hdr)
+
+
+def _write_stored_ref(job, ref) -> bool:
+    """REF_EXT_STORE (src/reference.c, flags.h:16-21 --REFERENCE): store
+    the genome ranges the file used, so unzip needs no .ref file. Payload:
+    contigs json + (start, len) ranges + the 2-bit codes of each range.
+    False when no range was used."""
+    ranges = ref.used_ranges()
+    if not ranges:
+        return False
+    meta = fmt.json_payload({"contigs": ref.contigs,
+                             "length": int(ref.length),
+                             "ranges": [[int(s), int(l)] for s, l in ranges]})
+    packed = b"".join(packops.pack_np(ref.codes[s:s + l], 2).tobytes()
+                      for s, l in ranges)
+    payload = len(meta).to_bytes(4, "little") + meta + packed
+    job.zw.write_section(fmt.SEC_REFERENCE, payload,
+                         codec=codec_assign.assign_best(payload, "text"))
+    return True
+
+
+def zip_pair(in1: str, in2: str, out_path: str, vb_size: int | None = None,
+             show_stats: bool = False, reference: str | None = None,
+             threads: int | None = None, optimize: bool = False):
+    """R1/R2 paired FASTQ into one two-component archive. Two-stage
+    dispatcher: workers seg R1 VBs; the ordered drain reads the matching R2
+    reads (R1's read count) and hands them to a second worker stage (seg R2
+    with R1's GPOS as a hint, pair-GPOS delta, local compression); the final
+    ordered drain writes both components. VB 1 runs alone through both
+    stages, so its first-sight commits (codecs, R2's per-file seg state) are
+    made once, before anything runs concurrently."""
+    r1, dt1, _ = _open_component(in1, reference, "fastq")
+    try:
+        r2, dt2, _ = _open_component(in2, reference, "fastq", ref=dt1.ref)
+    except BaseException:
+        r1.close()
+        raise
+    try:
+        job = ZipJob(out_path)
+        try:
+            file_hdr = _zip_pair_into(job, r1, dt1, r2, dt2, in1, in2,
+                                      vb_size, reference, threads, optimize)
+            job.write_global_area(file_hdr)
+        finally:
+            job.out.close()
+    finally:
+        r1.close()
+        r2.close()
+    if show_stats:
+        print_stats(job.stats)
+    return job.stats
+
+
+def _zip_pair_into(job, r1, dt1, r2, dt2, in1, in2, vb_size, reference,
+                   threads, optimize):
+    if vb_size is None:
+        vb_size = dt1.suggested_vb_size() or DEFAULT_VB_SIZE
+    dt1.optimize_enabled = dt2.optimize_enabled = optimize
+    adler = [zlib.adler32(b""), zlib.adler32(b"")]
+    lines = [0, 0]
+    tlens = [0, 0]
+    nvbs = 0
+    workers = threads or min(max(os.cpu_count() or 2, 1), 8)
+
+    def seg1(data1):
+        with profiler.timer("zip:seg"):
+            res1 = dt1.seg_vb(data1)
+        with profiler.timer("zip:compress-local"):
+            pre1 = job.precompress_locals(res1)
+        return res1, pre1
+
+    def seg2(data2, hint, first):
+        # later VBs run on a shallow copy, so the shared dt2's per-file lazy
+        # state (the qual class) is read, never raced; VB 1 runs on the
+        # original, alone, and commits that state
+        d2 = dt2 if first else copy.copy(dt2)
+        d2.pair_gpos_hint = hint
+        with profiler.timer("zip:seg"):
+            res2 = d2.seg_vb(data2)
+        # pair-assisted GPOS: R2 gpos as delta vs R1's (same read index,
+        # reference fastq_seq.c:187); hint carries R1's per-read gpos
+        if hint is not None and "GPOS" in res2.ctxs:
+            a1 = hint >= 0
+            a2 = res2.ctxs["SQBITMAP"].local.astype(bool)
+            g1 = np.where(a1, hint, 0)
+            both = a2 & a1
+            g2 = res2.ctxs["GPOS"].local.copy()
+            res2.ctxs["GPOS"].local = np.where(both[a2], g2 - g1[a2], g2)
+            res2.ctxs["GPOS"].param = 0
+            res2.meta["gpos_pair_delta"] = True
+        with profiler.timer("zip:compress-local"):
+            pre2 = job.precompress_locals(res2)
+        return res2, pre2
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        stage1 = deque()   # (data1, future(res1, pre1))
+        stage2 = deque()   # (vb_i, data1, res1, pre1, data2, future2)
+
+        def advance1():
+            """Drain one R1 seg in order -> read R2 -> submit stage 2."""
+            nonlocal nvbs
+            data1, fut1 = stage1.popleft()
+            with profiler.timer("zip:seg-wait"):
+                res1, pre1 = fut1.result()
+            nvbs += 1
+            data2 = r2.read_fastq_records(res1.num_lines)
+            if optimize:
+                data2 = dt2.optimize_vb(data2)
+            hint = None
+            if "SQBITMAP" in res1.ctxs:
+                hint = np.full(res1.num_lines, -1, np.int64)
+                hint[res1.ctxs["SQBITMAP"].local.astype(bool)] = \
+                    res1.ctxs["GPOS"].local
+            fut2 = pool.submit(seg2, data2, hint, nvbs == 1)
+            stage2.append((nvbs, data1, res1, pre1, data2, fut2))
+
+        def advance2():
+            vb_i, data1, res1, pre1, data2, fut2 = stage2.popleft()
+            with profiler.timer("zip:seg-wait"):
+                res2, pre2 = fut2.result()
+            if res2.num_lines != res1.num_lines:
+                raise ValueError(f"R2 out of step with R1 in VB {vb_i}: "
+                                 f"{res2.num_lines} reads vs "
+                                 f"{res1.num_lines}")
+            with profiler.timer("zip:merge+write"):
+                p1 = job.write_vb(res1, data1, vb_i, 0, pre_locals=pre1,
+                                  collect=True)
+                job.write_vb(res2, data2, vb_i, 1, pre_locals=pre2,
+                             pair_payloads=p1)
+            for c, data, res in ((0, data1, res1), (1, data2, res2)):
+                adler[c] = zlib.adler32(data, adler[c])
+                tlens[c] += data.shape[0]
+                lines[c] += res.num_lines
+
+        for data1 in r1.vblocks(dt1, vb_size):
+            stage1.append((data1, pool.submit(seg1, data1)))
+            if nvbs == 0:
+                # VB 1 wholly alone: codec commits + per-file lazy seg state
+                advance1()
+                advance2()
+                continue
+            while len(stage1) > workers:
+                advance1()
+            while len(stage2) > workers:
+                advance2()
+        while stage1:
+            advance1()
+        while stage2:
+            advance2()
+    if r2.read_fastq_records(1).shape[0]:
+        raise ValueError("R2 has more reads than R1")
+
+    return {
+        "version": 2, "dt": "fastq", "num_vbs": nvbs,
+        "num_lines": sum(lines), "txt_len": sum(tlens),
+        "adler": None, "segconf": dt1.segconf,
+        "txt_name": in1.rsplit("/", 1)[-1],
+        "reference": reference.rsplit("/", 1)[-1] if reference else None,
+        "pair": True,
+        "components": [
+            {"name": in1.rsplit("/", 1)[-1], "txt_len": tlens[0],
+             "adler": adler[0], "num_lines": lines[0]},
+            {"name": in2.rsplit("/", 1)[-1], "txt_len": tlens[1],
+             "adler": adler[1], "num_lines": lines[1]},
+        ],
+    }
 
 
 def print_stats(stats: ZipStats):

@@ -166,9 +166,11 @@ def test_device_cuda_without_gpu_raises(archives):
     codecs.disable_device_rans()
 
 
-@pytest.mark.parametrize("flag", [["--reference", "g.ref.gxz"], ["--pair"],
-                                  ["--deep"], ["--bamass", "a.bam"]])
+@pytest.mark.parametrize("flag", [["--deep"], ["--bamass", "a.bam"],
+                                  ["r2.fastq"],
+                                  ["--deep", "--reference", "g.ref.gxz"]])
 def test_unported_zip_options_raise(archives, flag):
+    """--deep, --bamass and more than one input without --pair."""
     d, fq, port, ref, _ = archives
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cli.main(["zip", fq, "-o", str(d / "no.gxz"), "--device", "cpu"] + flag)

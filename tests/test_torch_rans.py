@@ -155,3 +155,99 @@ def test_kernels_equal_plain_on_the_card(order):
     enc = rans_cuda.encode_many(datas, order, "cuda")
     assert enc == rans_cuda.encode_many(datas, order, "cpu")
     assert rans_cuda.decode_many(enc, "cuda") == datas
+
+
+# --- single-stream entry points (TPU kernel rows 8-16) ----------------------
+
+ENTRY_QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
+
+
+@pytest.mark.parametrize("n,N,S", [(33000, 256, 4), (131072, 128, 16),
+                                   (100, 128, 1)])
+def test_entry_encode_vs_pallas_encode(n, N, S):
+    """encode() against rans_pallas.encode (encode_order0_device)."""
+    from genozip_tpu.ops import rans_pallas
+    data = np.random.default_rng(n).choice(ENTRY_QUALS, n).tobytes()
+    got = rans_cuda.encode(data, n_lanes=N, device="cpu")
+    assert got == rans_pallas.encode(data, n_lanes=N, S=S, interpret=True)
+    assert got == rans_np.encode(data, 0, n_lanes=N)
+
+
+DECODE_VARIANTS = {"v1": {"v1": True}, "v2": {"S": 4, "v2": True},
+                   "v3": {"S": 8, "v3": True}, "v4": {"S": 8, "v4": True},
+                   "v5": {"S": 8, "v5": True}}
+
+
+@pytest.mark.parametrize("variant", list(DECODE_VARIANTS))
+def test_entry_decode_vs_pallas_decode_variants(variant):
+    """decode() against each of rans_pallas.decode's kernels
+    (decode_order0_device and its v2-v5)."""
+    from genozip_tpu.ops import rans_pallas
+    data = np.random.default_rng(7).choice(ENTRY_QUALS, 33000).tobytes()
+    buf = rans_np.encode(data, 0, n_lanes=256)
+    got = rans_cuda.decode(buf, device="cpu")
+    assert got == rans_pallas.decode(buf, interpret=True,
+                                     **DECODE_VARIANTS[variant])
+    assert got == data
+
+
+def test_entry_order1_vs_pallas_order1():
+    """encode_order1()/decode_order1() against encode_order1_device and
+    decode_order1_device."""
+    from genozip_tpu.ops import rans_pallas
+    data = np.random.default_rng(8).choice(
+        np.frombuffer(b"FFFFF:F,#", np.uint8), 40000).tobytes()
+    enc = rans_cuda.encode_order1(data, n_lanes=256, device="cpu")
+    assert enc == rans_pallas.encode_order1(data, n_lanes=256, S=8,
+                                            interpret=True)
+    assert enc == rans_np.encode(data, 1, n_lanes=256)
+    got = rans_cuda.decode_order1(enc, device="cpu")
+    assert got == rans_pallas.decode_order1(enc, S=8, interpret=True)
+    assert got == data
+
+
+def test_entry_encode_many_vs_pre_v6_encode_many():
+    """encode_many(..., 0, n_lanes=N) against the pre-v6 multi-stream
+    rans_pallas.encode_many (encode_many_device)."""
+    from genozip_tpu.ops import rans_pallas
+    rng = np.random.default_rng(9)
+    datas = [rng.choice(ENTRY_QUALS, n).tobytes() for n in (33000, 0, 1, 5170)]
+    datas.append(b"F" * 4000)
+    got = rans_cuda.encode_many(datas, 0, "cpu", n_lanes=256)
+    assert got == rans_pallas.encode_many(datas, n_lanes=256, S=4,
+                                          interpret=True)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("N", [16, 64, 8192])
+def test_entry_decoders_take_every_lane_count(order, N):
+    """The Pallas decoders refuse N < 128; the port decodes every N of the
+    stream format."""
+    data = np.random.default_rng(N + order).choice(ENTRY_QUALS, 20000).tobytes()
+    enc_fn = rans_cuda.encode if order == 0 else rans_cuda.encode_order1
+    dec_fn = rans_cuda.decode if order == 0 else rans_cuda.decode_order1
+    enc = enc_fn(data, n_lanes=N, device="cpu")
+    assert enc == rans_np.encode(data, order, n_lanes=N)
+    assert dec_fn(enc, device="cpu") == data
+
+
+def test_entry_decoders_check_the_order():
+    buf = rans_np.encode(b"ACGT" * 500, 1, n_lanes=64)
+    with pytest.raises(ValueError, match="order-0"):
+        rans_cuda.decode(buf, device="cpu")
+    with pytest.raises(ValueError, match="order-1"):
+        rans_cuda.decode_order1(rans_np.encode(b"ACGT" * 500, 0), device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [128, 1024])
+def test_entry_points_on_the_card(N):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    data = np.random.default_rng(N).choice(ENTRY_QUALS, 200000).tobytes()
+    for order, enc_fn, dec_fn in ((0, rans_cuda.encode, rans_cuda.decode),
+                                  (1, rans_cuda.encode_order1,
+                                   rans_cuda.decode_order1)):
+        enc = enc_fn(data, n_lanes=N, device="cuda")
+        assert enc == enc_fn(data, n_lanes=N, device="cpu")
+        assert dec_fn(enc, device="cuda") == data
