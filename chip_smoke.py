@@ -2,18 +2,29 @@
 """Smoke run of genozip_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --phases kernels,micro     # a subset, no result
+    python3 chip_smoke.py --ab PARENT CHANGE         # decoders of two trees
 
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. setup: the card (nvidia-smi name and power limit), torch/CUDA versions,
-   whether the native host runtime loaded, and the nvcc build of the kernels.
+   and the nvcc builds of the kernels (csrc/rans.cu) and of their
+   microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas' register
+   and spill report.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
    on the same inputs, byte for byte (tolerance: exact), at main-path shapes
    (R = 8 streams of 1-4 MiB of packed SEQ and packed QUAL, which has 256
-   symbols, and of raw QUAL, which has few) and at edge cases; times of
-   kernel and plain version from CUDA events, also at R = 1 on one 16 MiB
-   VB's packed stream, the shape the full runs' nested SEQ and QUAL streams
-   launch with.
+   symbols, and of raw QUAL, which has few) and at edge cases (R = 8 at
+   mixed lane counts and at N = 16, 64, 1024 and 8192: empty streams, short
+   last lanes, one and 256 symbols); times of kernel and plain
+   version from CUDA events, also at R = 1 on one 16 MiB VB's packed stream,
+   the shape the full runs' nested SEQ and QUAL streams launch with, and
+   rans_decode_o0 on a 134 MB refhash-shaped stream (N = 8192, R = 1), the
+   shape of the reference load.
+2b. micro: the decode step's chain floor (block_rank alone), the decoder
+   before the shared-memory redesign with its stores and loads switched off
+   in turn, the redesigned decoder on the same streams, and barrier.cluster
+   over 1-8 blocks.
 3. device equals host: `zip` of a 64 MiB FASTQ with --device cuda and with
    --device cpu must write the same archive bytes.
 4. cfg3 full run: `zip`, then `unzip`, of a 512 MiB cfg3-shaped FASTQ,
@@ -33,13 +44,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
    --device cuda archive must equal the --device cpu one, and a --REFERENCE
    archive must unzip without --reference.
 
-jax must never have been imported. The last two lines are a JSON object with
-the numbers of all sixteen TPU kernels' counterparts and {"ok": true,
-"device": {...}}. Needs no network; writes under a temporary directory that
-it removes.
+Neither jax nor any module of the JAX package genozip_tpu may have been
+imported. The last two lines are a JSON object with the numbers of all
+sixteen TPU kernels' counterparts (time, plain time, bytes-or-operations
+bound, launches on the cfg4 and cfg3 paths) and {"ok": true, "device":
+{...}}. Needs no network; writes under a temporary directory that it
+removes.
 """
 
+import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -86,6 +101,9 @@ ENTRY_N = (100, 517, 33000, 131072, 200000)
 CHR20_BP = 64_444_167     # GRCh38 chr20, the cfg4 genome's length
 ENTRY_LANES = (128, 256, 1024)
 QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
+HBM_BPS = 3.35e12         # H100 SXM device memory, bytes/s
+ALU_OPS = 67e12           # H100 SXM float32 outside the tensor cores, op/s
+OPS_PER_SYMBOL = 10       # table lookup, multiply-add, compare, rank, store
 
 
 def log(*a):
@@ -134,10 +152,25 @@ def edge_streams(rng):
     return out + [b"\x07" * 5000, rng.integers(0, 256, 300000, np.uint8).tobytes()]
 
 
+def stream_bytes(datas, bufs, tab_bytes):
+    """Bytes a coder must move: the symbols, the coded streams and the
+    tables, each once."""
+    return sum(map(len, datas)) + sum(map(len, bufs)) + tab_bytes
+
+
+def bound_ms(nbytes, symbols):
+    """Least time on the card: bytes over 3.35 TB/s against operations over
+    67 T/s (about ten 32-bit integer operations a symbol, at the
+    non-tensor-core float32 rate); returns (ms, "bytes" | "operations")."""
+    tb, to = nbytes / HBM_BPS * 1e3, symbols * OPS_PER_SYMBOL / ALU_OPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
     """Run kernel `name` and its plain version on the card on the same
     inputs; fail unless they agree byte for byte (and a decode gives back
-    `datas`). Returns (max_abs_err, kernel ms, plain ms)."""
+    `datas`). Returns (max_abs_err, kernel ms, plain ms, bytes moved,
+    symbols)."""
     from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
     kfn = getattr(rans_cuda, name)
     if is_enc:
@@ -156,10 +189,11 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
         want = rt.finish_encode(b, pw, pp, ps)
         err = max(int((kp - pp).abs().max()) if kp.numel() else 0,
                   int((ks.long() - ps.long()).abs().max()) if ks.numel() else 0)
+        nbytes = stream_bytes(datas, got, b.tab.numel() * 4)
     else:
         bufs = rans_cuda.encode_many(datas, order, "cuda", lanes)
         d = rt.prepare_decode(bufs)
-        ddev = [t.cuda() for t in (d.words, d.meta, d.tab, d.s2s)]
+        ddev = [t.cuda() for t in (d.words, d.meta, d.tab)]
 
         def kern():
             return kfn(*ddev, d.n_out)
@@ -172,12 +206,13 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
         err = int((ko.long() - po.long()).abs().max()) if ko.numel() else 0
         if got != datas:
             raise SystemExit(f"{name}: decode differs from input")
+        nbytes = stream_bytes(datas, bufs, d.tab.numel() * 4)
     if got != want or err:
         raise SystemExit(f"{name}: kernel differs from plain "
                          f"(max_abs_err {err})")
     ms = cuda_ms(kern, reps) if reps else None
     pms = cuda_ms(plain, 1) if time_plain and reps else None
-    return err, ms, pms
+    return err, ms, pms, nbytes, sum(map(len, datas))
 
 
 def phase_kernels(rng):
@@ -197,17 +232,18 @@ def phase_kernels(rng):
         cases = [("main", main, None), ("vb", one, None)]
         if order == 1:
             cases.append(("palette", raw, None))
-        cases += [("edge", edges, None), ("edge16", edges, 16),
-                  ("edge8192", edges, 8192)]
+        cases += [("edge", edges, None)] + [
+            (f"edge{N}", edges, N) for N in (16, 64, 1024, 8192)]
         for label, datas, lanes in cases:
             timed = label in ("main", "vb", "palette")
-            err, ms, pms = check_kernel(name, order, is_enc, datas, lanes,
-                                        reps=5 if timed else 0)
+            m = check_kernel(name, order, is_enc, datas, lanes,
+                             reps=5 if timed else 0)
+            err, ms, pms = m[:3]
             log(f"kernel {name} {label}: R={len(datas)} equal to plain, "
                 f"max_abs_err {err}")
             if not timed:
                 continue
-            meas[(name, label)] = (err, ms, pms)
+            meas[(name, label)] = m
             mb = sum(map(len, datas)) / 1e6
             if label == "vb":
                 log(f"kernel {name}: {ms:.3f} ms ({mb / ms:.2f} GB/s of "
@@ -216,7 +252,22 @@ def phase_kernels(rng):
             else:
                 log(f"kernel {name} {label}: {ms:.3f} ms ({mb / ms:.1f} GB/s "
                     f"of symbols), plain {pms:.3f} ms, R={R}, {mb:.1f} MB")
+    # a refhash-sized stream, as the reference load decodes: the 2^24-slot,
+    # two-layer u32 seed table of a cfg4 genome (134 MB, N = 8192, R = 1)
+    rh = refhash_like(rng)
+    m = check_kernel("rans_decode_o0", 0, False, [rh], None, time_plain=False,
+                     reps=2)
+    log(f"kernel rans_decode_o0 refhash: R=1 {len(rh) / 1e6:.1f} MB at "
+        f"N=8192 equal to plain; {m[1]:.3f} ms")
     return meas
+
+
+def refhash_like(rng):
+    """134,217,728 bytes shaped like a refhash: u32 genome positions below
+    2^26, a third of the slots empty (0xFFFFFFFF)."""
+    g = rng.integers(0, 1 << 26, 1 << 25, dtype=np.uint32)
+    g[rng.random(1 << 25) < 1 / 3] = 0xFFFFFFFF
+    return g.astype("<u4").tobytes()
 
 
 def phase_entry(rng):
@@ -236,7 +287,7 @@ def phase_entry(rng):
     def plain_decode(buf):
         d = rt.prepare_decode([buf])
         out = rt.decode_plain(d.order, *(t.cuda() for t in (
-            d.words, d.meta, d.tab, d.s2s)), d.n_out)
+            d.words, d.meta, d.tab)), d.n_out)
         return rt.finish_decode(d, out)[0]
 
     fns = ((0, rans_cuda.encode, rans_cuda.decode),
@@ -456,11 +507,250 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=256):
     return counts
 
 
-def main():
+def slot_to_symbol(freq):
+    """Slot->symbol bytes per (freq) row that sums to 4096, 0 elsewhere: the
+    table the decoder took before the packed slot entries (its copy in
+    csrc/rans_micro.cu still does)."""
+    f2 = freq.reshape(-1, 256).astype(np.int64)
+    out = np.zeros((f2.shape[0], 4096), np.uint8)
+    used = f2.sum(axis=1) == 4096
+    syms = np.tile(np.arange(256, dtype=np.uint8), int(used.sum()))
+    out[used] = np.repeat(syms, f2[used].reshape(-1)).reshape(-1, 4096)
+    return out.reshape(freq.shape[:-1] + (4096,))
+
+
+def micro_lib():
+    from genozip_tpu_torch.ops import rans_cuda
+    L = ctypes.CDLL(rans_cuda.lib_path("rans_micro"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    L.micro_chain.argtypes = [ci, ci, ctypes.c_longlong, vp, vp]
+    L.micro_decode_v2_o0.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp]
+    L.micro_decode_v2_o1.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp]
+    L.micro_decode_tile_o0.argtypes = [vp, vp, vp, vp, vp, ci, vp]
+    L.micro_decode_tile_o1.argtypes = [vp, vp, vp, vp, vp, ci, vp]
+    L.micro_cluster_sync.argtypes = [ci, ci, vp, vp]
+    for f in (L.micro_chain, L.micro_decode_v2_o0, L.micro_decode_v2_o1,
+              L.micro_decode_tile_o0, L.micro_decode_tile_o1,
+              L.micro_cluster_sync):
+        f.restype = ci
+    return L
+
+
+def _ok(what, rc):
+    if rc:
+        raise SystemExit(f"micro {what}: CUDA error {rc}")
+
+
+V2_VARIANTS = ((3, "stores+loads"), (2, "loads, no stores"),
+               (1, "stores, no loads"), (0, "neither"))
+
+
+def phase_micro(rng, smi):
+    """Phase 2b: (a) the chain floor, the word ranking alone (block_rank of
+    the encoders, block_rank_runs of the decoders), at N = 1024 and 8192;
+    (b) the decoder before the redesign (csrc/rans_micro.cu) per step at
+    N = 1024 and 8192 on one VB stream of each order, with its symbol stores
+    and renorm-word loads switched off in turn, beside the design with a
+    shared-memory tile (rans_micro.cu) and the shipped decoder on the same
+    stream; (c) one barrier.cluster over 1,
+    2, 4 and 8 blocks of 1024 threads, beside __syncthreads. Prints one
+    `micro {...}` JSON line (us per step, ns per barrier)."""
+    from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
+    L = micro_lib()
+    st = torch.cuda.current_stream().cuda_stream
+    sink = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    res = {"card": smi}
+    K = 4096
+    for runs, rank in ((0, "block_rank"), (1, "block_rank_runs")):
+        for N in (1024, 8192):
+            ms = cuda_ms(lambda: _ok("chain", L.micro_chain(
+                runs, N, K, sink.data_ptr(), st)), 3)
+            res[f"chain_{rank}_N{N}_us_per_step"] = ms * 1e3 / K
+            log(f"micro chain floor N={N}: {ms * 1e3 / K:.3f} us per step "
+                f"({rank} alone, {K} steps)")
+    one_seq, one_qual = main_path_streams(rng, [VB_STREAM])
+    for order, data in ((0, one_seq[0]), (1, one_qual[0])):
+        for N in (1024, 8192):
+            bufs = rans_cuda.encode_many([data], order, "cuda", N)
+            d = rt.prepare_decode(bufs)
+            steps = int(d.meta[0, 4])
+            s2s = torch.from_numpy(slot_to_symbol(d.tab[:, 0].numpy()))
+            w, m, tb, ss = (t.cuda() for t in (d.words, d.meta, d.tab, s2s))
+            out = torch.empty(d.n_out, dtype=torch.uint8, device="cuda")
+            fn = L.micro_decode_v2_o0 if order == 0 else L.micro_decode_v2_o1
+            for var, label in V2_VARIANTS:
+                def run(var=var):
+                    _ok("decode_v2", fn(var, w.data_ptr(), m.data_ptr(),
+                                        tb.data_ptr(), ss.data_ptr(),
+                                        out.data_ptr(), 1, st))
+                ms = cuda_ms(run, 5)
+                if var == 3 and out.cpu().numpy().tobytes() != data:
+                    raise SystemExit("micro decode_v2: differs from the input")
+                key = f"v2_o{order}_N{N}_{label.replace(' ', '_')}"
+                res[key] = ms * 1e3 / steps
+                log(f"micro decode before redesign o{order} N={N} {label}: "
+                    f"{ms:.3f} ms, {ms * 1e3 / steps:.3f} us per step "
+                    f"(K={steps})")
+            tfn = L.micro_decode_tile_o0 if order == 0 \
+                else L.micro_decode_tile_o1
+            slots = torch.empty((1, 256, 4096), dtype=torch.int32,
+                                device="cuda")
+
+            def tile():
+                _ok("decode_tile", tfn(w.data_ptr(), m.data_ptr(),
+                                       tb.data_ptr(), slots.data_ptr(),
+                                       out.data_ptr(), 1, st))
+            ms = cuda_ms(tile, 5)
+            if out.cpu().numpy().tobytes() != data:
+                raise SystemExit("micro decode_tile: differs from the input")
+            res[f"tile_o{order}_N{N}"] = ms * 1e3 / steps
+            log(f"micro decode with a shared-memory tile o{order} N={N}: "
+                f"{ms:.3f} ms, {ms * 1e3 / steps:.3f} us per step")
+            kfn = rans_cuda.rans_decode_o0 if order == 0 \
+                else rans_cuda.rans_decode_o1
+            ms = cuda_ms(lambda: kfn(w, m, tb, d.n_out), 5)
+            res[f"new_o{order}_N{N}"] = ms * 1e3 / steps
+            log(f"micro decode as shipped (rows + unstripe) o{order} N={N}: "
+                f"{ms:.3f} ms, {ms * 1e3 / steps:.3f} us per step")
+    iters = 100000
+    for c in (0, 1, 2, 4, 8):
+        ms = cuda_ms(lambda: _ok("cluster_sync", L.micro_cluster_sync(
+            c, iters, sink.data_ptr(), st)), 3)
+        what = "__syncthreads" if c == 0 else f"barrier.cluster x{c}"
+        res[f"sync_{c}_ns"] = ms * 1e6 / iters
+        log(f"micro {what} (1024 threads a block): "
+            f"{ms * 1e6 / iters:.1f} ns per barrier")
+    log("micro " + json.dumps(res))
+    return res
+
+
+AB_CASES = [  # label, kernel, order, lanes (None: choose_num_lanes)
+    ("seq_r8", "rans_decode_o0", 0, None),
+    ("rawqual_r8", "rans_decode_o1", 1, None),
+    ("qual_r8", "rans_decode_o1", 1, None),
+    ("vbseq", "rans_decode_o0", 0, None),
+    ("vbqual", "rans_decode_o1", 1, None),
+    ("vbseq_n1024", "rans_decode_o0", 0, 1024),
+    ("vbqual_n1024", "rans_decode_o1", 1, 1024),
+    ("refhash", "rans_decode_o0", 0, None),
+]
+AB_CHILD = """
+import json, sys
+import numpy as np
+import chip_smoke
+z = np.load(sys.argv[1])
+out = {}
+for label, name, order, lanes in json.loads(sys.argv[2]):
+    keys = sorted((k for k in z.files if k.split("__")[0] == label),
+                  key=lambda k: int(k.split("__")[1]))
+    datas = [z[k].tobytes() for k in keys]
+    out[label] = chip_smoke.check_kernel(name, order, False, datas, lanes,
+                                         time_plain=False)[1]
+print("AB " + json.dumps(out))
+"""
+
+
+def ab_decoders(parent, change):
+    """Times rans_decode_o0/o1 of two checkouts on the same streams, each
+    checkout in a fresh interpreter through its own chip_smoke.check_kernel
+    (byte-checked against its plain version), in the order parent, change,
+    change, parent; prints each run and the medians."""
+    rng = np.random.default_rng(2024)
+    sizes = lambda: [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)]
+    seqs, quals = main_path_streams(rng, sizes())
+    _, raw = main_path_streams(rng, sizes(), raw_qual=True)
+    one_seq, one_qual = main_path_streams(rng, [VB_STREAM])
+    data = {"seq_r8": seqs, "rawqual_r8": raw, "qual_r8": quals,
+            "vbseq": one_seq, "vbqual": one_qual, "vbseq_n1024": one_seq,
+            "vbqual_n1024": one_qual, "refhash": [refhash_like(rng)]}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="gxz_ab_") as tmp:
+        npz = os.path.join(tmp, "streams.npz")
+        np.savez(npz, **{f"{k}__{i}": np.frombuffer(b, np.uint8)
+                         for k, v in data.items() for i, b in enumerate(v)})
+        for who, path in (("parent", parent), ("change", change),
+                          ("change", change), ("parent", parent)):
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
+            res = subprocess.run(
+                [sys.executable, "-c", AB_CHILD, npz, json.dumps(AB_CASES)],
+                cwd=path, env=env, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise SystemExit(f"ab {who} ({path}) failed:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
+            runs.append((who, json.loads(line[-1][3:])))
+            log(f"ab {who}: " + json.dumps(runs[-1][1]))
+    for label, *_ in AB_CASES:
+        par = sorted(r[label] for w, r in runs if w == "parent")
+        chg = sorted(r[label] for w, r in runs if w == "change")
+        log(f"ab {label}: parent {par} ms, change {chg} ms, median ratio "
+            f"{np.median(par) / np.median(chg):.2f}x on {smi}")
+    ab_cfg3(parent, change, smi)
+    return 0
+
+
+def ab_cfg3(parent, change, smi):
+    """cfg3 end to end for two checkouts: `zip` and `unzip` of one 512 MiB
+    cfg3-shaped FASTQ through each one's CLI in a fresh interpreter
+    (`--device cuda`; wall time includes start-up), in turns parent, change,
+    change, parent; each unzip must give back the input, and the log says
+    whether each archive equals the parent's first one."""
+    from genozip_tpu_torch import synth
+    with tempfile.TemporaryDirectory(prefix="gxz_ab3_") as tmp:
+        fq = os.path.join(tmp, "reads512.fastq")
+        size = synth.write_fastq(fq, 512 * MIB, seed=512)
+        rates = {"zip": {"parent": [], "change": []},
+                 "unzip": {"parent": [], "change": []}}
+        same = []
+        for i, (who, path) in enumerate((("parent", parent),
+                                         ("change", change),
+                                         ("change", change),
+                                         ("parent", parent))):
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
+            z, out = os.path.join(tmp, f"{i}.gxz"), os.path.join(tmp, "out")
+            for cmd, argv in (("zip", ["zip", fq, "-o", z, "-q"]),
+                              ("unzip", ["unzip", z, "-o", out])):
+                t = time.time()
+                subprocess.run([sys.executable, "-m", "genozip_tpu_torch"] +
+                               argv + ["--device", "cuda"], cwd=path, env=env,
+                               check=True, capture_output=True)
+                rates[cmd][who].append(size / 1e6 / (time.time() - t))
+            if not same_file(fq, out):
+                raise SystemExit(f"ab cfg3 {who}: unzip output differs")
+            same.append(same_file(z, os.path.join(tmp, "0.gxz")))
+            os.remove(out)
+        for cmd, r in rates.items():
+            log(f"ab cfg3 {cmd}: parent {r['parent']} MB/s, change "
+                f"{r['change']} MB/s ({size} bytes, fresh interpreter each) "
+                f"on {smi}")
+        log(f"ab cfg3: archives equal to the first (parent's): {same}")
+
+
+PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES) +
+                    " (default: all, and only then the result lines)")
+    ap.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"),
+                    help="time the decoders, then cfg3 zip and unzip, of two "
+                         "checkouts in turns (parent, change, change, "
+                         "parent) and stop")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
         return 2
-    from genozip_tpu_torch import codecs
+    if args.ab:
+        return ab_decoders(*args.ab)
+    phases = [x for x in args.phases.split(",") if x]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}")
     from genozip_tpu_torch.ops import rans_cuda
 
     # 1. setup
@@ -471,35 +761,49 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"setup: python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} x{torch.cuda.device_count()}")
-    log(f"setup: native host runtime available: {codecs.native.available()}")
     t = time.time()
-    report = rans_cuda.build(verbose=True)
-    log(f"setup: kernels built in {time.time() - t:.1f} s")
+    report = rans_cuda.build(verbose=True, names=tuple(rans_cuda.SOURCES))
+    log(f"setup: kernels and microbenchmarks built in {time.time() - t:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.endswith(".cu:") or "registers" in line or "spill" in line \
+                or "Compiling entry" in line:
             log("  ptxas:", line.strip())
     rans_cuda.lib()
 
-    # 2. kernels against their plain versions
     rng = np.random.default_rng(2024)
-    meas = phase_kernels(rng)
-
+    meas, counts3, counts4 = {}, None, None
+    if "kernels" in phases:                         # 2
+        meas.update(phase_kernels(rng))
+    if "micro" in phases:                           # 2b
+        phase_micro(np.random.default_rng(7), smi)
     with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp:
-        counts3 = phase_cfg3(tmp, smi)              # 3 and 4
-        meas.update(phase_entry(rng))               # 5
-        counts4 = phase_cfg4(tmp, smi)              # 6
-    if "jax" in sys.modules:
-        raise SystemExit("jax was imported")
+        if "cfg3" in phases:
+            counts3 = phase_cfg3(tmp, smi)          # 3 and 4
+        if "entry" in phases:
+            meas.update(phase_entry(rng))           # 5
+        if "cfg4" in phases:
+            counts4 = phase_cfg4(tmp, smi)          # 6
+    if "jax" in sys.modules or any(
+            k == "genozip_tpu" or k.startswith("genozip_tpu.")
+            for k in sys.modules):
+        raise SystemExit("jax or the JAX package genozip_tpu was imported")
+    if set(phases) != set(PHASES):
+        log(f"partial run of phases {phases}: passed; no result lines")
+        return 0
     rows = []
     for line, name, entry, label in TPU_ROWS:
-        err, ms, pms = meas[(name, label)]
+        err, ms, pms, nbytes, nsym = meas[(name, label)]
+        bms, by = bound_ms(nbytes, nsym)
         rows.append({"name": name, "route": "cuda",
                      "source": "genozip_tpu_torch/csrc/rans.cu",
-                     "replaces": f"{PALLAS}{line}", "port_kernel": name,
+                     "replaces": f"{PALLAS}{line}", "launches": counts4[name],
+                     "max_abs_err": err, "ms": round(ms, 4),
+                     "plain_ms": round(pms, 4), "bound_ms": round(bms, 6),
+                     "bound_by": by, "library_ms": None,
+                     "port_kernel": name,
                      "entry": f"genozip_tpu_torch.ops.rans_cuda.{entry}",
-                     "shape": label, "launches": counts4[name],
-                     "launches_cfg3": counts3[name], "max_abs_err": err,
-                     "ms": round(ms, 4), "plain_ms": round(pms, 4)})
+                     "shape": label, "bytes": nbytes,
+                     "launches_cfg3": counts3[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -107,7 +107,7 @@ def main(argv=None):
     if args.reference is None and os.environ.get("GXZ_REFERENCE"):
         args.reference = os.environ["GXZ_REFERENCE"]
     if getattr(args, "quiet", False):
-        from genozip_tpu.utils import progress as _prog
+        from .utils import progress as _prog
         _prog.set_quiet(True)
     if args.cmd != "ls":
         from . import codecs
@@ -130,7 +130,7 @@ def main(argv=None):
     elif args.cmd == "ls":
         _ls(args)
     if getattr(args, "show_time", False):
-        from genozip_tpu.utils import profiler
+        from .utils import profiler
         print(profiler.report())
     return 0
 

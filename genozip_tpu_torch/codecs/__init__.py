@@ -4,7 +4,7 @@ Counterpart of genozip_tpu/codecs/__init__.py (codec ids, payload layouts and
 bytes are the same). rANS payloads of `min_size` bytes or more go to the
 kernels of `ops.rans_cuda` on the device set by `enable_device_rans`; smaller
 ones, and all of them while no device is set, go to the host coder
-(`genozip_tpu.native`, else `rans_np`). Every stream takes
+`ops.rans_np`. Every stream takes
 `rans_np.choose_num_lanes(n)` lanes and is never padded, so the device route
 writes the same bytes as the host route. A failure of the device route raises
 `DeviceKernelError`; nothing falls back to the host coder.
@@ -20,8 +20,7 @@ import zlib as _zlib
 import numpy as np
 import torch
 
-from genozip_tpu import native
-from genozip_tpu.ops import rans_np
+from ..ops import arith_np, rans_np
 from ..ops import pack as packops
 from ..ops import rans_cuda
 from ..ops.rans_cuda import DeviceKernelError  # noqa: F401  (re-export)
@@ -92,8 +91,6 @@ def decompress_many_rans(blobs) -> list:
 def _rans_encode(data: bytes, order: int) -> bytes:
     if _device is not None and len(data) >= _min_size:
         return compress_many_rans([data], order)[0]
-    if native.available():
-        return native.rans_encode(data, order)
     return rans_np.encode(data, order=order)
 
 
@@ -101,28 +98,10 @@ def _rans_decode(blob) -> bytes:
     n = int.from_bytes(bytes(blob[2:6]), "little")
     if _device is not None and n >= _min_size:
         return decompress_many_rans([blob])[0]
-    if native.available():
-        return native.rans_decode(blob)
     return rans_np.decode(blob)
 
 
-def _arith_encode(data: bytes, order: int) -> bytes:
-    if native.available():
-        return native.arith_encode(data, order)
-    from genozip_tpu.ops import arith_np
-    return arith_np.encode(data, order=order)
-
-
-def _arith_decode(blob) -> bytes:
-    if native.available():
-        return native.arith_decode(blob)
-    from genozip_tpu.ops import arith_np
-    return arith_np.decode(blob)
-
-
 def _byte_hist(a: np.ndarray) -> np.ndarray:
-    if native.available():
-        return native.byte_hist(a)
     return np.bincount(a, minlength=256)
 
 
@@ -140,10 +119,7 @@ def _pack_encode(data: bytes, order: int) -> bytes:
         raise ValueError("PACK needs <=16 distinct symbols")
     lut = np.zeros(256, np.uint8)
     lut[syms] = np.arange(ns, dtype=np.uint8)
-    if native.available():
-        packed = native.pack_lut(a, lut, width)
-    else:
-        packed = packops.pack_np(lut[a], width)
+    packed = packops.pack_np(lut[a], width)
     sub = _rans_encode(packed.tobytes(), order)
     head = bytes([ns, width]) + len(a).to_bytes(8, "little") + syms.tobytes()
     return head + sub
@@ -155,18 +131,13 @@ def _pack_decode(blob) -> bytes:
     n = int.from_bytes(blob[2:10], "little")
     syms = np.frombuffer(blob[10:10 + ns], np.uint8)
     packed = np.frombuffer(_rans_decode(blob[10 + ns:]), np.uint8)
-    if native.available():
-        return native.unpack_lut(packed, n, width, syms).tobytes()
     codes = packops.unpack_np(packed, width, n)
     return syms[codes].tobytes()
 
 
 def _acgt_encode(data: bytes, packed_lz: bool = False) -> bytes:
     a = np.frombuffer(data, np.uint8)
-    if native.available():
-        packed, exc_pos, exc_bytes = native.acgt_pack(a)
-    else:
-        packed, exc_pos, exc_bytes = packops.seq_pack_2bit(a)
+    packed, exc_pos, exc_bytes = packops.seq_pack_2bit(a)
     p = _lzma.compress(packed.tobytes(), preset=1) if packed_lz \
         else _rans_encode(packed.tobytes(), 0)
     e_pos = _rans_encode(np.diff(exc_pos, prepend=np.uint32(0)).astype("<u4").tobytes(), 0)
@@ -192,8 +163,6 @@ def _acgt_decode(blob, packed_lz: bool = False) -> bytes:
     exc_bytes = np.frombuffer(_rans_decode(blob[off:]), np.uint8)[:ne]
     if exc_pos.shape[0] != ne:
         raise ValueError("ACGT exception channel length mismatch")
-    if native.available():
-        return native.acgt_unpack(packed, n, exc_pos, exc_bytes).tobytes()
     return packops.seq_unpack_2bit(packed, n, exc_pos, exc_bytes).tobytes()
 
 
@@ -305,8 +274,6 @@ def compress(data: bytes, codec: int) -> bytes:
     if codec == PACK1:
         return _pack_encode(data, 1)
     if codec == ZLIB:
-        if native.available() and len(data) > 0:
-            return native.zlib_compress(data, 6)
         return _zlib.compress(bytes(data), 6)
     if codec == BZ2:
         return _bz2.compress(bytes(data), 9)
@@ -325,9 +292,9 @@ def compress(data: bytes, codec: int) -> bytes:
     if codec == STRIPE4:
         return _stripe4_encode(data)
     if codec == ARITH0:
-        return _arith_encode(data, 0)
+        return arith_np.encode(data, order=0)
     if codec == ARITH1:
-        return _arith_encode(data, 1)
+        return arith_np.encode(data, order=1)
     if codec == BWT:
         raise _not_ported(codec)
     raise ValueError(f"unknown codec {codec}")
@@ -341,10 +308,7 @@ def decompress(blob, codec: int, uncomp_len: int) -> bytes:
     elif codec in (PACK0, PACK1):
         out = _pack_decode(blob)
     elif codec == ZLIB:
-        if native.available() and uncomp_len > 0:
-            out = native.zlib_decompress(blob, uncomp_len)
-        else:
-            out = _zlib.decompress(bytes(blob))
+        out = _zlib.decompress(bytes(blob))
     elif codec == BZ2:
         out = _bz2.decompress(bytes(blob))
     elif codec == LZMA:
@@ -362,7 +326,7 @@ def decompress(blob, codec: int, uncomp_len: int) -> bytes:
     elif codec == STRIPE4:
         out = _stripe4_decode(blob)
     elif codec in (ARITH0, ARITH1):
-        out = _arith_decode(blob)
+        out = arith_np.decode(blob)
     elif codec == BWT:
         raise _not_ported(codec)
     else:

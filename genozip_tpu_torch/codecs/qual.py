@@ -30,8 +30,8 @@ Channel classes (each names the reference codec whose role it fills):
 
 import numpy as np
 
-from genozip_tpu.utils import ragged
-from genozip_tpu.utils.ragged import Col
+from ..utils import ragged
+from ..utils.ragged import Col
 
 CLASSES = ("smux", "pacb", "pacbx", "longr", "tmpl", "homp")
 

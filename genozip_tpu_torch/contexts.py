@@ -13,10 +13,9 @@ instead of base-250 varints.
 
 import numpy as np
 
-from genozip_tpu import native
-from genozip_tpu.utils import ragged
-from genozip_tpu.utils.ragged import Col
 from .codecs import assign as codec_assign
+from .utils import ragged
+from .utils.ragged import Col
 
 # ctx reconstruction modes (stored per-VB in the VB header)
 MODE_DICT = "dict"          # b250 word indices into the global dict
@@ -51,36 +50,11 @@ class VBCtx:
 
 def dedup_col(col: Col):
     """Vectorized ragged dedup: returns (unique Col in first-seen order,
-    inverse int64[n]). Native path: one-pass 64-bit row hashes + np.unique
-    + one-pass representative verify (exact fallback on collision); numpy
-    path: pad+hash-fold matrix; python dict for wide rows."""
+    inverse int64[n]): a pad+hash-fold matrix for rows up to 96 bytes, a
+    python dict for wider rows."""
     n = len(col)
     if n == 0:
         return Col.from_list([]), np.zeros(0, np.int64)
-    if native.available() and n > 64:
-        h = native.row_hash(col.data, col.offsets)
-        _, first_idx, inverse = np.unique(h, return_index=True,
-                                          return_inverse=True)
-        if native.rows_equal_rep(col.data, col.offsets, first_idx[inverse]):
-            order = np.argsort(first_idx, kind="stable")
-            rank = np.empty_like(order)
-            rank[order] = np.arange(order.shape[0])
-            inverse = rank[inverse]
-            return ragged.take(col, first_idx[order]), \
-                inverse.astype(np.int64)
-        # 64-bit collision (astronomically rare): exact python fallback
-        seen = {}
-        inv = np.empty(n, dtype=np.int64)
-        uw = []
-        for i in range(n):
-            r = col.row(i)
-            j = seen.get(r)
-            if j is None:
-                j = len(uw)
-                seen[r] = j
-                uw.append(r)
-            inv[i] = j
-        return Col.from_list(uw), inv
     maxw = int(col.lens.max()) if n else 0
     if maxw <= 96:
         w = max(maxw, 1)
@@ -136,12 +110,10 @@ def dedup_col(col: Col):
 
 
 def _col_hashes(col: Col) -> np.ndarray:
-    """64-bit row hashes (native one-pass when available)."""
-    if native.available() and len(col):
-        return native.row_hash(col.data, col.offsets)
+    """64-bit row hashes, for dict membership only (any fixed hash serves)."""
     n = len(col)
     h = np.zeros(n, np.uint64)
-    for i in range(n):   # tiny dicts only (no native lib)
+    for i in range(n):
         h[i] = np.uint64(hash(col.row(i)) & 0xFFFFFFFFFFFFFFFF)
     return h
 

@@ -18,12 +18,11 @@ instead of per-line qname flavor matching; SEQ is one concatenated stream
 import numpy as np
 
 from . import DataType, VBSegResult, register
-from genozip_tpu import native
-from genozip_tpu.utils import profiler, ragged
 from ..contexts import VBCtx, MODE_DICT, MODE_NUM, MODE_TXT, dedup_col
 from ..ops import pack as packops
 from ..ref import aligner as al
 from ..seg import tokenizer_seg_col, tokenizer_recon_col
+from ..utils import profiler, ragged
 
 
 @register
@@ -88,8 +87,6 @@ class FastqDT(DataType):
     def vb_boundary(self, data: np.ndarray, is_eof: bool) -> int:
         if is_eof:
             return data.shape[0]
-        if native.available():
-            return native.stride_boundary(data, 4)  # SIMD memchr scan
         nl = np.nonzero(data == ord("\n"))[0]
         quads = nl.shape[0] // 4
         if quads == 0:

@@ -28,7 +28,8 @@ The Pallas wrappers' tiling and selection knobs (`S`, `v1`..`v5`,
 the stream format (16..8192), not only N >= 128.
 
 The library is built with nvcc for sm_90a at first use, from the sources in
-this package, into `genozip_tpu_torch/build/`, and loaded with ctypes. Each
+this package (`csrc/rans.cu`), into `genozip_tpu_torch/build/`, and loaded
+with ctypes. Each
 wrapper checks its tensors; on CUDA tensors it launches its kernel (and adds
 one to its launch count) or raises, and on CPU tensors it runs the kernel's
 plain version from `ops.rans_torch`. Any failure of the kernel route on the
@@ -49,9 +50,11 @@ import torch
 from . import rans_torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "rans.cu")
+_CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-_LIB = os.path.join(BUILD_DIR, "librans.so")
+# library name -> source; rans_micro holds microbenchmarks that only
+# chip_smoke.py builds and runs
+SOURCES = {"rans": "rans.cu", "rans_micro": "rans_micro.cu"}
 
 KERNELS = ("rans_encode_o0", "rans_decode_o0", "rans_encode_o1",
            "rans_decode_o1")
@@ -80,22 +83,49 @@ def _nvcc() -> str:
                             "toolkit")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/rans.cu into build/librans.so unless it is up to date.
-    Returns nvcc's resource report when `verbose`."""
-    if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
+def lib_path(name: str = "rans") -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    out = lib_path(name)
+    if not os.path.exists(out):
+        return True
+    deps = [os.path.join(_CSRC, SOURCES[name])] + [
+        os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh")]
+    return any(os.path.getmtime(d) > os.path.getmtime(out) for d in deps)
+
+
+def build(verbose: bool = False, names=("rans",)) -> str:
+    """Compile each named source of SOURCES into build/lib<name>.so unless it
+    is up to date; the nvcc processes run side by side. Returns nvcc's
+    resource reports when `verbose`."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise DeviceKernelError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, _LIB)
-    return res.stderr
+    procs = []
+    for name in todo:
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+               tmp, os.path.join(_CSRC, SOURCES[name])]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports, errors = [], []
+    for name, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {SOURCES[name]} failed ({proc.returncode}):"
+                          f"\n{err}")
+            continue
+        os.replace(tmp, lib_path(name))
+        reports.append(f"{SOURCES[name]}:\n{err}")
+    if errors:
+        raise DeviceKernelError("\n".join(errors))
+    return "\n".join(reports)
 
 
 def lib():
@@ -106,9 +136,9 @@ def lib():
         if _lib is None:
             build()
             try:
-                L = ctypes.CDLL(_LIB)
+                L = ctypes.CDLL(lib_path())
             except OSError as e:
-                raise DeviceKernelError(f"cannot load {_LIB}: {e}") from e
+                raise DeviceKernelError(f"cannot load {lib_path()}: {e}") from e
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for name in ("rans_encode_o0", "rans_encode_o1"):
                 fn = getattr(L, name)
@@ -176,24 +206,35 @@ def _encode(order, data, meta, tab, n_words, n_states):
     return words, p, states
 
 
-def _decode(order, words, meta, tab, s2s, n_out):
+def decode_work_bytes(order: int, R: int, n_out: int) -> int:
+    """Device scratch of a decode launch: order 1's slot entries (4 MB a
+    stream), then every stream's symbols in (step, lane) order, K*N < n +
+    8192 bytes each at a 16-byte aligned offset."""
+    return (R << 22 if order == 1 else 0) + n_out + \
+        R * (rans_torch.MAX_LANES + 16)
+
+
+def _decode(order, words, meta, tab, n_out):
     name = f"rans_decode_o{order}"
     R = meta.shape[0]
     _check("words", words, torch.int16, 1)
     _check("meta", meta, torch.int64, shape=(R, rans_torch.META))
     _check("tab", tab, torch.int32, shape=_tab_shape(order, R))
-    _check("s2s", s2s, torch.uint8,
-           shape=(R, 4096) if order == 0 else (R, 256, 4096))
-    dev = _same_device(words, meta, tab, s2s)
+    dev = _same_device(words, meta, tab)
     if dev.type == "cpu":
-        return rans_torch.decode_plain(order, words, meta, tab, s2s, n_out)
+        return rans_torch.decode_plain(order, words, meta, tab, n_out)
+    if words.data_ptr() % 16:
+        raise ValueError("words: the decoders copy 16-byte chunks and need a "
+                         "16-byte aligned tensor")
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
+    work = torch.empty(decode_work_bytes(order, R, n_out), dtype=torch.uint8,
+                       device=dev)
     if R:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = getattr(lib(), name)(
                 words.data_ptr(), meta.data_ptr(), tab.data_ptr(),
-                s2s.data_ptr(), out.data_ptr(), R, stream)
+                work.data_ptr(), out.data_ptr(), R, stream)
         _launch(name, rc)
     return out
 
@@ -208,14 +249,14 @@ def rans_encode_o1(data, meta, tab, n_words: int, n_states: int):
     return _encode(1, data, meta, tab, n_words, n_states)
 
 
-def rans_decode_o0(words, meta, tab, s2s, n_out: int):
+def rans_decode_o0(words, meta, tab, n_out: int):
     """R order-0 streams -> uint8 (n_out,)."""
-    return _decode(0, words, meta, tab, s2s, n_out)
+    return _decode(0, words, meta, tab, n_out)
 
 
-def rans_decode_o1(words, meta, tab, s2s, n_out: int):
-    """R order-1 streams, 256x4096 slot->symbol table per stream."""
-    return _decode(1, words, meta, tab, s2s, n_out)
+def rans_decode_o1(words, meta, tab, n_out: int):
+    """R order-1 streams -> uint8 (n_out,)."""
+    return _decode(1, words, meta, tab, n_out)
 
 
 @contextlib.contextmanager
@@ -251,7 +292,7 @@ def decode_many(bufs, device) -> list:
     fn = rans_decode_o0 if b.order == 0 else rans_decode_o1
     with _device_errors(device, fn.__name__):
         out = fn(b.words.to(device), b.meta.to(device), b.tab.to(device),
-                 b.s2s.to(device), b.n_out)
+                 b.n_out)
         return rans_torch.finish_decode(b, out)
 
 

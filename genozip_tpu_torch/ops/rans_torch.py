@@ -1,6 +1,6 @@
 """RANS-W32x16 host framing and the plain PyTorch versions of the four coders.
 
-The stream format is normative in `genozip_tpu.ops.rans_np`. A batch of R
+The stream format is normative in `ops.rans_np`. A batch of R
 streams is laid out flat for one launch (one block per stream on the card):
 
 * encode: `prepare_encode` builds the per-stream tables and headers on the
@@ -9,8 +9,10 @@ streams is laid out flat for one launch (one block per stream on the card):
   word buffer, the first-word pointers and the final states; `finish_encode`
   frames header + states (hi, lo, lane-ascending) + words.
 * decode: `prepare_decode` parses each stream's header and serialized tables
-  (the same bytes `rans_np._freqs_deserialize` reads) into freq/cum and
-  slot->symbol tables and packs the word bodies; a coder fills the output.
+  (the same bytes `rans_np._freqs_deserialize` reads) into freq/cum tables
+  and packs the word bodies; a coder turns the tables into packed slot
+  entries (`slot_entries`: symbol | (f-1) << 8 | (slot-cum) << 20, one
+  lookup per symbol) and fills the output.
 
 The plain versions run the same integer arithmetic on a (R, N) batch with the
 32-bit state held in int64, on whatever device their tensors are on. They are
@@ -22,7 +24,7 @@ import zlib
 import numpy as np
 import torch
 
-from genozip_tpu.ops import rans_np
+from . import rans_np
 
 SCALE_BITS = rans_np.SCALE_BITS
 RANS_L = rans_np.RANS_L
@@ -44,12 +46,11 @@ class EncodeBatch:
 
 
 class DecodeBatch:
-    def __init__(self, order, words, meta, tab, s2s, n_out, lens):
+    def __init__(self, order, words, meta, tab, n_out, lens):
         self.order = order
         self.words = words         # int16 (u16 bits), all stream bodies
         self.meta = meta           # int64 (R, 8)
         self.tab = tab             # int32 (R, 2, 256) or (R, 2, 256, 256)
-        self.s2s = s2s             # uint8 (R, 4096) or (R, 256, 4096)
         self.n_out = n_out         # output bytes over all streams
         self.lens = lens           # per-stream n
 
@@ -183,18 +184,6 @@ def parse_stream(buf):
     return N, 1, n, freq2, 14 + clen
 
 
-def slot_to_symbol(freq: np.ndarray) -> np.ndarray:
-    """Slot->symbol table(s): 4096 bytes per row whose frequencies sum to
-    4096; rows that sum to 0 (unused order-1 contexts) stay 0."""
-    f2 = freq.reshape(-1, 256).astype(np.int64)
-    out = np.zeros((f2.shape[0], 1 << SCALE_BITS), np.uint8)
-    used = f2.sum(axis=1) == (1 << SCALE_BITS)
-    if used.any():
-        syms = np.tile(np.arange(256, dtype=np.uint8), int(used.sum()))
-        out[used] = np.repeat(syms, f2[used].reshape(-1)).reshape(-1, 1 << SCALE_BITS)
-    return out.reshape(freq.shape[:-1] + (1 << SCALE_BITS,))
-
-
 def prepare_decode(bufs) -> DecodeBatch:
     """Parse R streams of one order into one decode launch."""
     R = len(bufs)
@@ -206,8 +195,6 @@ def prepare_decode(bufs) -> DecodeBatch:
     meta = np.zeros((R, META), np.int64)
     tshape = (R, 2, 256) if order == 0 else (R, 2, 256, 256)
     tab = np.zeros(tshape, np.int32)
-    s2s = np.zeros((R, 1 << SCALE_BITS) if order == 0
-                   else (R, 256, 1 << SCALE_BITS), np.uint8)
     bodies = []
     woff = ooff = 0
     for r, (buf, (N, _, n, freq, off)) in enumerate(zip(bufs, parsed)):
@@ -220,7 +207,6 @@ def prepare_decode(bufs) -> DecodeBatch:
         K = (n + N - 1) // N
         tab[r, 0] = freq
         tab[r, 1] = _cum(freq.astype(np.int64))
-        s2s[r] = slot_to_symbol(freq)
         meta[r] = (woff, w.shape[0], n, N, K, ooff, 0, 0)
         bodies.append(w)
         woff += w.shape[0]
@@ -228,7 +214,7 @@ def prepare_decode(bufs) -> DecodeBatch:
     words = np.concatenate(bodies) if bodies else np.zeros(0, np.uint16)
     return DecodeBatch(order, torch.from_numpy(words.view(np.int16).copy()),
                        torch.from_numpy(meta), torch.from_numpy(tab),
-                       torch.from_numpy(s2s), ooff, [p[2] for p in parsed])
+                       ooff, [p[2] for p in parsed])
 
 
 def finish_decode(batch: DecodeBatch, out: torch.Tensor) -> list:
@@ -305,8 +291,27 @@ def encode_plain(order: int, data: torch.Tensor, meta: torch.Tensor,
     return words, p, states
 
 
+def slot_entries(tab: torch.Tensor) -> torch.Tensor:
+    """Packed slot entries of a (freq, cum) table, as the decode kernels build
+    them: (R, 2, 256) -> (R, 4096) or (R, 2, 256, 256) -> (R, 256, 4096),
+    int64 holding u32 values symbol | (f - 1) << 8 | (slot - cum) << 20, where
+    symbol s has cum[s] <= slot < cum[s] + f. Rows whose frequencies do not
+    sum to 4096 (order-1 contexts absent from the stream) are 0."""
+    f = tab[:, 0].reshape(-1, 256).to(torch.int64)
+    c = tab[:, 1].reshape(-1, 256).to(torch.int64)
+    rows = f.shape[0]
+    slot = torch.arange(1 << SCALE_BITS, dtype=torch.int64,
+                        device=tab.device).expand(rows, -1).contiguous()
+    s = torch.searchsorted(c, slot, right=True) - 1
+    fs, cs = f.gather(1, s), c.gather(1, s)
+    e = s | (((fs - 1) & 0xFFF) << 8) | ((slot - cs) << 20)
+    used = f.sum(dim=1, keepdim=True) == (1 << SCALE_BITS)
+    e = torch.where(used, e, torch.zeros_like(e))
+    return e.reshape(tab.shape[:1] + tab.shape[2:-1] + (1 << SCALE_BITS,))
+
+
 def decode_plain(order: int, words: torch.Tensor, meta: torch.Tensor,
-                 tab: torch.Tensor, s2s: torch.Tensor, n_out: int):
+                 tab: torch.Tensor, n_out: int):
     """Plain version of rans_decode_o0/o1: returns out uint8 (n_out,)."""
     dev = words.device
     R = meta.shape[0]
@@ -321,9 +326,7 @@ def decode_plain(order: int, words: torch.Tensor, meta: torch.Tensor,
     hi = w[torch.where(live, woff[:, None] + 2 * lane, zero)]
     lo = w[torch.where(live, woff[:, None] + 2 * lane + 1, zero)]
     x = (hi << 16) | lo
-    ftab = tab[:, 0].reshape(R, -1).to(torch.int64)
-    ctab = tab[:, 1].reshape(R, -1).to(torch.int64)
-    sym = s2s.reshape(R, -1)
+    ent = slot_entries(tab).reshape(R, -1)
     rows = torch.arange(R, device=dev)[:, None]
     ctx = torch.zeros_like(x)
     p = 2 * N
@@ -331,15 +334,10 @@ def decode_plain(order: int, words: torch.Tensor, meta: torch.Tensor,
     for t in range(int(K.max()) if R else 0):
         active = t < ln
         slot = x & mask
-        if order == 0:
-            s = sym[rows, slot].to(torch.int64)
-            fi = s
-        else:
-            s = sym[rows, (ctx << SCALE_BITS) + slot].to(torch.int64)
-            fi = ctx * 256 + s
-        f = torch.where(active, ftab[rows, fi], torch.ones_like(s))
-        c = torch.where(active, ctab[rows, fi], torch.zeros_like(s))
-        x = torch.where(active, f * (x >> SCALE_BITS) + slot - c, x)
+        e = ent[rows, slot if order == 0 else (ctx << SCALE_BITS) + slot]
+        s = e & 0xFF
+        f = ((e >> 8) & 0xFFF) + 1
+        x = torch.where(active, f * (x >> SCALE_BITS) + (e >> 20), x)
         need = active & (x < RANS_L)
         S = need.sum(dim=1)
         rank = torch.cumsum(need, dim=1) - 1

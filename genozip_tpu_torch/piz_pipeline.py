@@ -22,15 +22,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from genozip_tpu import native
-from genozip_tpu.utils import profiler
-from genozip_tpu.utils.ragged import Col
 from . import codecs
 from .contexts import PCtx, parse_dict_payload
 from .datatypes import get
 from .format import sections as fmt
 from .ops import pack as packops
 from .ref.refstore import RefGenome, load_ref_file
+from .utils import profiler
+from .utils.ragged import Col
 
 
 def _not_ported(what):
@@ -222,10 +221,9 @@ class PizReader:
             out = self.dts[comp_i].recon_vb(pctxs, meta)
         if len(out) != vb_hdr["len"]:
             raise ValueError(f"VB {vb_i}: length {len(out)} != {vb_hdr['len']}")
-        if vb_hdr.get("x64") is not None and native.available():
-            if native.xxh64(out) != vb_hdr["x64"]:
-                raise ValueError(f"VB {vb_i}: xxh64 digest mismatch")
-        elif zlib.adler32(out) != vb_hdr["adler"]:
+        # archives written by genozip_tpu with its C++ host runtime also
+        # carry an xxh64 digest ("x64"); the adler32 one is always there
+        if zlib.adler32(out) != vb_hdr["adler"]:
             raise ValueError(f"VB {vb_i}: digest mismatch")
         return out
 

@@ -20,10 +20,10 @@ import time
 
 import numpy as np
 
-from genozip_tpu.txtfile import open_input
 from .. import codecs
 from ..format import sections as fmt
 from ..ops import pack as packops
+from ..txtfile import open_input
 
 KMER = 16               # seed length (u32-packable)
 HASH_BITS_DEFAULT = 24  # refhash slots = 2^bits

@@ -15,10 +15,9 @@ system achieves, without the template catalog.
 
 import numpy as np
 
-from genozip_tpu import native
-from genozip_tpu.utils import ragged
-from genozip_tpu.utils.ragged import Col
 from .contexts import VBCtx, MODE_DICT, MODE_NUM, dedup_col
+from .utils import ragged
+from .utils.ragged import Col
 
 TOK_MARK = 0x01          # placeholder byte for a numeric run inside a template
 MAX_NUM_LEN = 18         # digit runs longer than this stay literal
@@ -27,10 +26,8 @@ MAX_TOKENS = 32          # digit runs beyond this stay literal
 
 
 def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
-    """Vectorized numpy twin of native gxz_tokenize (bit-exact: same keep
-    rules, same output streams) — used when the native runtime is absent so
-    every tokenizer consumer degrades in speed only, never availability.
-    Returns (tmpl_data u8, tmpl_lens i64, vals i64, tok_idx i32, widths
+    """Vectorized numpy tokenizer, bit-exact with genozip_tpu's C++
+    gxz_tokenize (same keep rules, same output streams). Returns (tmpl_data u8, tmpl_lens i64, vals i64, tok_idx i32, widths
     u8): kept digit runs are replaced by TOK_MARK in the template and
     emitted row-major with their run width (so zero-padded fixed-width
     fields — BGI-style names, the reference's fixed-width flavor items —
@@ -49,8 +46,9 @@ def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
     run_len = end_pos - start_pos
     run_row = np.searchsorted(offsets[1:], start_pos, side="right")
     keep0 = run_len <= MAX_NUM_LEN
-    # native semantics: the token counter advances on KEPT runs only, so the
-    # cap admits the first max_tokens runs per row that pass the base filter
+    # gxz_tokenize semantics: the token counter advances on KEPT runs only,
+    # so the cap admits the first max_tokens runs per row that pass the base
+    # filter
     kept_rank = np.cumsum(keep0) - keep0  # exclusive cumcount of kept runs
     row_base = np.zeros(start_pos.shape[0], np.int64)
     if start_pos.shape[0]:
@@ -91,12 +89,8 @@ def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
 
 
 def tokenize_col(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
-    """One-pass tokenizer scan (native when available, numpy twin
-    otherwise). Returns (tmpl_data, tmpl_lens, vals, tok_idx, widths)."""
-    if native.available():
-        t, tl, v, ti, w = native.tokenize(
-            np.ascontiguousarray(data), offsets, max_tokens)
-        return t, tl.astype(np.int64), v, ti, w
+    """One-pass tokenizer scan. Returns (tmpl_data, tmpl_lens, vals,
+    tok_idx, widths)."""
     return _tokenize_np(np.ascontiguousarray(data),
                         np.ascontiguousarray(offsets, np.int64), max_tokens)
 

@@ -13,8 +13,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from genozip_tpu.utils import ragged
 from .format import sections as fmt
+from .utils import ragged
 
 # plan item kinds
 TXTHEADER = "txthdr"      # emit the txt header

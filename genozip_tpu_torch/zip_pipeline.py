@@ -27,10 +27,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from genozip_tpu import native
-from genozip_tpu.txtfile import TxtReader, DEFAULT_VB_SIZE
-from genozip_tpu.utils import profiler
-from genozip_tpu.utils.progress import Progress
 from . import codecs
 from .codecs import assign as codec_assign
 from .contexts import ZCtxGlobal, narrow_int
@@ -38,6 +34,10 @@ from .datatypes import detect, get
 from .format import sections as fmt
 from .ops import pack as packops
 from .ref.refstore import load_ref_file
+from .txtfile import TxtReader, DEFAULT_VB_SIZE
+from .utils import profiler
+from .utils.bgzf import BgzfBlockReader, MgzipBlockReader
+from .utils.progress import Progress
 
 FLAG_DELTA = 1
 
@@ -187,8 +187,6 @@ class ZipJob:
         vb_hdr = {"n": res.num_lines, "len": int(data.shape[0]),
                   "adler": zlib.adler32(data), "ctxs": ctx_meta,
                   "meta": res.meta}
-        if native.available():
-            vb_hdr["x64"] = native.xxh64(data)   # 64-bit per-VB digest
         return {"pending": pending, "vb_hdr": vb_hdr, "vb_i": vb_i,
                 "comp_i": comp_i, "data_len": int(data.shape[0]),
                 "num_lines": res.num_lines, "out_payloads": out_payloads}
@@ -368,7 +366,6 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
     prog.finish()
 
     mgzip = None
-    from genozip_tpu.utils.bgzf import BgzfBlockReader, MgzipBlockReader
     if isinstance(reader.f, (BgzfBlockReader, MgzipBlockReader)):
         mgzip = reader.f.mgzip_info()
         if mgzip.get("exact"):

@@ -3,12 +3,15 @@
 The port's rANS device threshold is lowered to 16 KiB on the CPU, so its
 payloads and their nested streams (ACGT's packed SEQ, PACK's packed QUAL,
 DOMQ's and RLE's sub-streams) go through the kernels' plain PyTorch versions;
-the reference codes them on the host with its device path off."""
+the reference codes them on the host with its device path off and on its
+numpy host path (`genozip_tpu.native.available` patched to False), as the
+port does everywhere."""
 
 import numpy as np
 import pytest
 
 from genozip_tpu import codecs as ref_codecs
+from genozip_tpu import native as ref_native
 from genozip_tpu_torch import codecs
 from genozip_tpu_torch.ops import rans_torch
 from genozip_tpu_torch.synth import qual_rows
@@ -20,7 +23,8 @@ DEVICE_ROUTED = {C.RANS0, C.RANS1, C.PACK0, C.PACK1, C.ACGT, C.DELTA_RANS,
 
 
 @pytest.fixture(autouse=True)
-def device_route():
+def device_route(monkeypatch):
+    monkeypatch.setattr(ref_native, "available", lambda: False)
     ref_codecs.disable_device_rans()
     codecs.enable_device_rans("cpu", min_size=16 << 10)
     yield

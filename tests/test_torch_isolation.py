@@ -1,0 +1,127 @@
+"""genozip_tpu_torch stands alone: no module of the port, and not
+chip_smoke.py, imports the JAX package genozip_tpu (or jax), at the top of
+a file or inside a function; and a run of the port's commands in a fresh
+interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module and no `jax`
+in sys.modules."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from genozip_tpu_torch import synth, zip_pipeline, codecs
+from genozip_tpu_torch.ref import refstore
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "genozip_tpu_torch")
+SOURCES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")) + \
+    ["chip_smoke.py"]
+FORBIDDEN = ("genozip_tpu", "jax")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(tree):
+    """Every module name an import statement, importlib.import_module or
+    __import__ with a literal name brings in."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant) and \
+                isinstance(node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else \
+                getattr(fn, "id", None)
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value
+
+
+def test_sources_found():
+    assert len(SOURCES) > 25 and "genozip_tpu_torch/cli.py" in SOURCES
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_import_of_the_jax_package(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = [m for m in _imports(tree) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    """A small cfg3-shaped FASTQ, a genome with its .ref.gxz and pairs off
+    it, and the port's archives of both (written in this process)."""
+    d = tmp_path_factory.mktemp("iso")
+    synth.write_fastq(str(d / "r.fastq"), 300 << 10, seed=3, block=1000)
+    g = synth.genome(np.random.default_rng(5), 256 << 10)
+    synth.write_fasta(str(d / "g.fa"), g)
+    refstore.make_reference(str(d / "g.fa"), str(d / "g.ref.gxz"),
+                            hash_bits=16)
+    synth.write_paired_fastq(str(d / "r1.fastq"), str(d / "r2.fastq"), g,
+                             200 << 10, seed=6, block=1000)
+    codecs.enable_device_rans("cpu", min_size=16 << 10)
+    try:
+        zip_pipeline.zip_file(str(d / "r.fastq"), str(d / "r.gxz"))
+        zip_pipeline.zip_pair(str(d / "r1.fastq"), str(d / "r2.fastq"),
+                              str(d / "p.gxz"), reference=str(d / "g.ref.gxz"))
+    finally:
+        codecs.disable_device_rans()
+    return d
+
+
+# each case: one command of the port's CLI, run alone in a fresh interpreter
+RUNS = {
+    "zip": ["zip", "{d}/r.fastq", "-o", "{t}/z.gxz", "--device", "cpu", "-q"],
+    "unzip": ["unzip", "{d}/r.gxz", "-o", "{t}/r.out", "--device", "cpu"],
+    "cat": ["cat", "{d}/r.gxz", "--head", "3", "--device", "cpu"],
+    "ls": ["ls", "{d}/r.gxz", "--stats"],
+    "zip_pair_reference": ["zip", "{d}/r1.fastq", "{d}/r2.fastq", "--pair",
+                           "--reference", "{d}/g.ref.gxz", "-o", "{t}/p.gxz",
+                           "--device", "cpu", "-q"],
+    "unzip_pair_reference": ["unzip", "{d}/p.gxz", "--reference",
+                             "{d}/g.ref.gxz", "-o", "{t}/p.out", "--device",
+                             "cpu"],
+}
+SCRIPT = """
+import json, sys
+from genozip_tpu_torch.cli import main
+rc = main(json.loads(sys.argv[1]))
+loaded = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
+                or k == "genozip_tpu" or k.startswith("genozip_tpu."))
+print("RESULT", json.dumps({"rc": rc, "loaded": loaded}))
+"""
+
+
+@pytest.mark.parametrize("case", list(RUNS))
+def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
+    argv = [a.format(d=inputs, t=tmp_path) for a in RUNS[case]]
+    env = {k: v for k, v in os.environ.items() if k != "GXZ_DEVICE_RANS"}
+    env.update(PYTHONPATH=ROOT, GXZ_NO_REF_CACHE="1")
+    res = subprocess.run([sys.executable, "-c", SCRIPT, json.dumps(argv)],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(tmp_path), timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")]
+    got = json.loads(line[-1][len("RESULT "):])
+    assert got == {"rc": 0, "loaded": []}
+    if case == "unzip":
+        with open(tmp_path / "r.out", "rb") as a, \
+                open(inputs / "r.fastq", "rb") as b:
+            assert a.read() == b.read()
+    if case == "unzip_pair_reference":
+        for i in (1, 2):
+            with open(tmp_path / f"p.out.{i}", "rb") as a, \
+                    open(inputs / f"r{i}.fastq", "rb") as b:
+                assert a.read() == b.read()

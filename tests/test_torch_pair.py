@@ -6,8 +6,10 @@ and without a reference), --optimize, unzip of both components, and cat
 Inputs are cfg4-shaped (`synth.write_paired_fastq` off a repeat-family
 genome) and made from numpy seeds. The port's rANS device threshold is
 16 KiB on the CPU, so the VB sections and nested streams take the kernels'
-plain PyTorch route; genozip_tpu runs with its device path off. Parity is
-exact byte equality of archives and outputs."""
+plain PyTorch route; genozip_tpu runs with its device path off and on its
+numpy host path (`genozip_tpu.native.available` patched to False), as the
+port does everywhere. Parity is exact byte equality of archives and
+outputs."""
 
 import io
 import os
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 
 from genozip_tpu import codecs as ref_codecs
+from genozip_tpu import native as ref_native
 from genozip_tpu import cli as ref_cli, filters as ref_filters
 from genozip_tpu import piz_pipeline as ref_piz, zip_pipeline as ref_zip
 from genozip_tpu_torch import cli, codecs, filters, piz_pipeline, synth
@@ -77,6 +80,7 @@ def data(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setenv("GXZ_DEVICE_RANS", "0")
     mp.setenv("GXZ_NO_REF_CACHE", "1")
+    mp.setattr(ref_native, "available", lambda: False)
     g = synth.genome(np.random.default_rng(41), 512 << 10)
     synth.write_fasta(str(d / "g.fa"), g)
     refstore.make_reference(str(d / "g.fa"), str(d / "g.ref.gxz"),
@@ -149,6 +153,26 @@ def test_reference_decodes_port_archive(data, kind):
     ref_piz.piz_file(arcs[kind][0], out,
                      reference=None if kind == "store_ref" or
                      "reference" not in kw else str(d / "g.ref.gxz"))
+    assert _decoded(out, paired) == _want(d, kind)
+
+
+@pytest.mark.parametrize("kind", ["pair_ref", "store_ref"])
+def test_port_decodes_native_reference_archive(data, kind, tmp_path,
+                                              monkeypatch):
+    """Archives genozip_tpu wrote with its C++ host runtime (libdeflate
+    ZLIB, an xxh64 digest per VB) decode through the port."""
+    d, arcs = data
+    monkeypatch.setenv("GXZ_DEVICE_RANS", "0")
+    paired, kw = KINDS[kind]
+    nat = str(tmp_path / f"{kind}.native.gxz")
+    _zip(False, kind, d, nat)
+    out = str(tmp_path / f"{kind}.out")
+    codecs.enable_device_rans("cpu", min_size=16 << 10)
+    try:
+        piz_pipeline.piz_file(nat, out, reference=None if kind == "store_ref"
+                              else str(d / "g.ref.gxz"))
+    finally:
+        codecs.disable_device_rans()
     assert _decoded(out, paired) == _want(d, kind)
 
 
@@ -348,6 +372,7 @@ def test_fast_reference_cli_archive_equals_reference(data, tmp_path,
     from genozip_tpu_torch.codecs import assign
     d, arcs = data
     monkeypatch.setenv("GXZ_DEVICE_RANS", "0")
+    monkeypatch.setattr(ref_native, "available", lambda: False)
     monkeypatch.setattr(ref_al, "NUM_SEEDS", ref_al.NUM_SEEDS)
     argv = ["zip", str(d / "r1.fastq"), "--fast", "-q",
             "--reference", str(d / "g.ref.gxz")]

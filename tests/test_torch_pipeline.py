@@ -3,8 +3,11 @@ FASTQ zip, unzip, cat and ls.
 
 The port's rANS device threshold is lowered to 16 KiB on the CPU, so the
 VB sections and the nested SEQ and QUAL streams take the kernels' plain
-PyTorch route; the reference runs with its device path off. Parity is exact
-byte equality of archives and outputs."""
+PyTorch route; the reference runs with its device path off and on its numpy
+host path (`genozip_tpu.native.available` patched to False), the host path
+the port takes everywhere. Parity is exact byte equality of archives and
+outputs. The port also decodes archives that genozip_tpu wrote with its C++
+host runtime (ZLIB through libdeflate, an xxh64 digest per VB)."""
 
 import io
 import os
@@ -14,6 +17,7 @@ import sys
 import pytest
 
 from genozip_tpu import codecs as ref_codecs
+from genozip_tpu import native as ref_native
 from genozip_tpu import cli as ref_cli, filters as ref_filters
 from genozip_tpu import piz_pipeline as ref_piz, zip_pipeline as ref_zip
 from genozip_tpu_torch import cli, codecs, filters, piz_pipeline, synth
@@ -44,6 +48,7 @@ def archives(tmp_path_factory):
     mp.setattr(rans_torch, "encode_plain",
                lambda *a, **k: calls.append(1) or orig(*a, **k))
     mp.setenv("GXZ_DEVICE_RANS", "0")
+    mp.setattr(ref_native, "available", lambda: False)
     ref_codecs.disable_device_rans()
     codecs.enable_device_rans("cpu", min_size=16 << 10)
     try:
@@ -75,6 +80,7 @@ def test_fast_mode_archive_equals_reference(archives, device_route,
     from genozip_tpu_torch.codecs import assign
     d, fq, port, ref, _ = archives
     monkeypatch.setenv("GXZ_DEVICE_RANS", "0")
+    monkeypatch.setattr(ref_native, "available", lambda: False)
     ref_codecs.disable_device_rans()
     try:
         assign.set_mode("fast")
@@ -98,6 +104,26 @@ def test_port_decodes_reference_archive(archives, device_route):
     d, fq, port, ref, _ = archives
     piz_pipeline.piz_file(ref, str(d / "by_port.fastq"))
     assert _read(str(d / "by_port.fastq")) == _read(fq)
+
+
+def test_port_decodes_native_reference_archive(archives, device_route,
+                                              monkeypatch):
+    """An archive genozip_tpu wrote with its C++ host runtime: its ZLIB
+    sections come from libdeflate and its VB headers carry an xxh64 digest
+    the port cannot compute, so the port checks adler32 instead."""
+    d, fq, port, ref, _ = archives
+    monkeypatch.setenv("GXZ_DEVICE_RANS", "0")
+    ref_codecs.disable_device_rans()
+    nat = str(d / "native.gxz")
+    ref_zip.zip_file(fq, nat, vb_size=VB)
+    pr = piz_pipeline.PizReader(nat)
+    try:
+        has_x64 = "x64" in pr.load_vb(1)[0]
+    finally:
+        pr.close()
+    assert has_x64 == ref_native.available()
+    piz_pipeline.piz_file(nat, str(d / "native.by_port"))
+    assert _read(str(d / "native.by_port")) == _read(fq)
 
 
 def test_port_decodes_r4_fixture(tmp_path, device_route):

@@ -46,6 +46,55 @@ def test_plain_decodes_mixed_lane_counts(order):
     assert rans_cuda.decode_many(bufs, "cpu") == datas
 
 
+def test_slot_entries_match_the_spec():
+    """The packed slot entries (symbol | (f-1) << 8 | (slot-cum) << 20)
+    hold rans_np's slot->symbol table and the symbol's freq and cum; rows
+    that do not sum to 4096 are 0."""
+    rng = np.random.default_rng(12)
+    freqs = [rans_np.normalize_freqs(rng.integers(0, 50, 256) *
+                                     (rng.random(256) < k / 8))
+             for k in range(1, 9)]
+    freqs.append(np.eye(256, dtype=np.uint32)[7] * 4096)
+    f = np.stack(freqs).astype(np.int64)
+    tab = torch.from_numpy(np.stack([f, np.cumsum(f, 1) - f], 1)
+                           .astype(np.int32))
+    ent = rans_torch.slot_entries(tab).numpy()
+    for r, fr in enumerate(f):
+        sym = np.repeat(np.arange(256), fr)
+        cum = np.cumsum(fr) - fr
+        assert np.array_equal(ent[r] & 0xFF, sym)
+        assert np.array_equal(((ent[r] >> 8) & 0xFFF) + 1, fr[sym])
+        assert np.array_equal(ent[r] >> 20, np.arange(4096) - cum[sym])
+    o1 = torch.zeros((1, 2, 256, 256), dtype=torch.int32)
+    o1[0, :, 3] = tab[0]
+    e1 = rans_torch.slot_entries(o1)
+    assert e1.shape == (1, 256, 4096)
+    assert torch.equal(e1[0, 3], torch.from_numpy(ent[0]))
+    assert int(e1[0, :3].abs().sum()) == 0 and int(e1[0, 4:].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("N", [16, 64, 1024, 8192])
+def test_plain_decode_short_last_lanes(order, N):
+    """One decode batch of streams whose last lane is short (n = K*N - d),
+    plus one with lanes that hold nothing and a 256-symbol one, against
+    rans_np.decode and, where the Pallas decoders take N (N >= 128), against
+    them in interpret mode."""
+    rng = np.random.default_rng(N + order)
+    sizes = [3 * N - 1, 5 * N - N // 2 + 1, N // 2 + 3]
+    datas = [rng.choice(QUALS, s).tobytes() for s in sizes]
+    datas.append(rng.integers(0, 256, 2 * N + 5, dtype=np.uint8).tobytes())
+    bufs = [rans_np.encode(d, order, n_lanes=N) for d in datas]
+    got = rans_cuda.decode_many(bufs, "cpu")
+    assert got == [rans_np.decode(b) for b in bufs] == datas
+    if N >= 128:
+        from genozip_tpu.ops import rans_pallas
+        want = rans_pallas.decode_many_v6(bufs, S=4, R=8, interpret=True) \
+            if order == 0 else rans_pallas.decode_many_o1(bufs, S=8,
+                                                          interpret=True)
+        assert got == want
+
+
 def _pallas_inputs(seed):
     rng = np.random.default_rng(seed)
     return [rng.choice(QUALS, s).tobytes() for s in (6000, 37, 1, 2500)]

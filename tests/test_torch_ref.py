@@ -1,8 +1,10 @@
 """genozip_tpu_torch's reference store and aligner against genozip_tpu's:
 the same `.ref.gxz` bytes, refhash, FASTA parse, cache, alignments (gpos,
 strand, mismatches, junctions, with and without a pair hint) and rebuilt
-reads, on inputs made from a numpy seed. The cache eviction unlinks only the
-port's own caches (fault F4 of the reference is not carried over)."""
+reads, on inputs made from a numpy seed. genozip_tpu writes on its numpy
+host path (`genozip_tpu.native.available` patched to False), as the port
+does everywhere. The cache eviction unlinks only the port's own caches
+(fault F4 of the reference is not carried over)."""
 
 import os
 import time
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 
 from genozip_tpu import codecs as ref_codecs
+from genozip_tpu import native as ref_native
 from genozip_tpu.ref import aligner as ref_al, refstore as ref_rs
 from genozip_tpu_torch import codecs, synth
 from genozip_tpu_torch.ops import pack as packops
@@ -42,6 +45,7 @@ def test_make_reference_bytes_equal(tmp_path, monkeypatch):
     fa = tmp_path / "g.fa"
     fa.write_bytes(_fasta(seed=4))
     monkeypatch.setenv("GXZ_DEVICE_RANS", "0")
+    monkeypatch.setattr(ref_native, "available", lambda: False)
     ref_codecs.disable_device_rans()
     rs.make_reference(str(fa), str(tmp_path / "port.ref.gxz"))
     ref_rs.make_reference(str(fa), str(tmp_path / "jax.ref.gxz"))
@@ -49,9 +53,10 @@ def test_make_reference_bytes_equal(tmp_path, monkeypatch):
         (tmp_path / "jax.ref.gxz").read_bytes()
 
 
-def test_ref_file_bytes_equal_through_the_kernel_route(tmp_path):
+def test_ref_file_bytes_equal_through_the_kernel_route(tmp_path, monkeypatch):
     """The same bytes when the genome and refhash sections go through the
     rANS kernels' plain version (a 2^16-slot refhash keeps it small)."""
+    monkeypatch.setattr(ref_native, "available", lambda: False)
     fa = _fasta(seed=5)
     ref_codecs.disable_device_rans()
     codecs.enable_device_rans("cpu", min_size=16 << 10)
