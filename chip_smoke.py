@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --phases kernels,micro     # a subset, no result
-    python3 chip_smoke.py --ab PARENT CHANGE         # decoders of two trees
+    python3 chip_smoke.py --ab PARENT CHANGE         # kernels of two trees
 
 Phases, each printed on its own lines; any failure exits non-zero:
 
@@ -17,14 +17,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
    symbols, and of raw QUAL, which has few) and at edge cases (R = 8 at
    mixed lane counts and at N = 16, 64, 1024 and 8192: empty streams, short
    last lanes, one and 256 symbols); times of kernel and plain
-   version from CUDA events, also at R = 1 on one 16 MiB VB's packed stream,
+   version from CUDA events (an encoder's through its C entry point on
+   buffers allocated once, since its wrapper's host work takes longer than
+   its card time), also at R = 1 on one 16 MiB VB's packed stream,
    the shape the full runs' nested SEQ and QUAL streams launch with, and
    rans_decode_o0 on a 134 MB refhash-shaped stream (N = 8192, R = 1), the
    shape of the reference load.
 2b. micro: the decode step's chain floor (block_rank alone), the decoder
    before the shared-memory redesign with its stores and loads switched off
-   in turn, the redesigned decoder on the same streams, and barrier.cluster
-   over 1-8 blocks.
+   in turn, the redesigned decoder on the same streams, barrier.cluster
+   over 1-8 blocks, and the encoders: the new pass 1's chain floor (its
+   arithmetic alone), then on one VB stream of each order the encoder
+   before the lane-parallel redesign, the new pass 1 with and without its
+   word stores, and the whole new encoder through its C entry point and
+   through its wrapper, in us per step.
 3. device equals host: `zip` of a 64 MiB FASTQ with --device cuda and with
    --device cpu must write the same archive bytes.
 4. cfg3 full run: `zip`, then `unzip`, of a 512 MiB cfg3-shaped FASTQ,
@@ -170,7 +176,8 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
     """Run kernel `name` and its plain version on the card on the same
     inputs; fail unless they agree byte for byte (and a decode gives back
     `datas`). Returns (max_abs_err, kernel ms, plain ms, bytes moved,
-    symbols)."""
+    symbols); an encoder's ms is its C entry point's on buffers allocated
+    once, a decoder's its wrapper's."""
     from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
     kfn = getattr(rans_cuda, name)
     if is_enc:
@@ -190,6 +197,27 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
         err = max(int((kp - pp).abs().max()) if kp.numel() else 0,
                   int((ks.long() - ps.long()).abs().max()) if ks.numel() else 0)
         nbytes = stream_bytes(datas, got, b.tab.numel() * 4)
+        # the encoders take tens of microseconds on the card, less than the
+        # wrapper's host work (allocations, checks, six launch calls), so
+        # they are timed through their C entry point on buffers allocated
+        # once; the result is checked against the wrapper's
+        n = len(b.data)
+        work = torch.empty(rans_cuda.encode_work_bytes(order, len(datas), n),
+                           dtype=torch.uint8, device="cuda")
+        outs = (torch.empty_like(kw), torch.empty_like(kp),
+                torch.empty_like(ks))
+        args = [t.data_ptr() for t in dev] + [work.data_ptr()] + \
+            [t.data_ptr() for t in outs]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def timed():
+            rc = getattr(rans_cuda.lib(), name)(*args, len(datas), n, stream)
+            if rc:
+                raise SystemExit(f"{name}: CUDA error {rc}")
+        timed()
+        torch.cuda.synchronize()
+        if rt.finish_encode(b, *outs) != got:
+            raise SystemExit(f"{name}: C entry point differs from the wrapper")
     else:
         bufs = rans_cuda.encode_many(datas, order, "cuda", lanes)
         d = rt.prepare_decode(bufs)
@@ -201,6 +229,7 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
         def plain():
             return rt.decode_plain(order, *ddev, d.n_out)
         ko, po = kern(), plain()
+        timed = kern
         torch.cuda.synchronize()
         got, want = rt.finish_decode(d, ko), rt.finish_decode(d, po)
         err = int((ko.long() - po.long()).abs().max()) if ko.numel() else 0
@@ -210,7 +239,7 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
     if got != want or err:
         raise SystemExit(f"{name}: kernel differs from plain "
                          f"(max_abs_err {err})")
-    ms = cuda_ms(kern, reps) if reps else None
+    ms = cuda_ms(timed, reps) if reps else None
     pms = cuda_ms(plain, 1) if time_plain and reps else None
     return err, ms, pms, nbytes, sum(map(len, datas))
 
@@ -529,9 +558,16 @@ def micro_lib():
     L.micro_decode_tile_o0.argtypes = [vp, vp, vp, vp, vp, ci, vp]
     L.micro_decode_tile_o1.argtypes = [vp, vp, vp, vp, vp, ci, vp]
     L.micro_cluster_sync.argtypes = [ci, ci, vp, vp]
+    L.micro_encode_v3_o0.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
+    L.micro_encode_v3_o1.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
+    L.micro_encode_pass1.argtypes = [ci, ci, vp, vp, vp, vp, ci,
+                                     ctypes.c_longlong, vp]
+    L.micro_encode_chain.argtypes = [ci, ci, ci, vp, vp, vp]
     for f in (L.micro_chain, L.micro_decode_v2_o0, L.micro_decode_v2_o1,
               L.micro_decode_tile_o0, L.micro_decode_tile_o1,
-              L.micro_cluster_sync):
+              L.micro_cluster_sync, L.micro_encode_v3_o0,
+              L.micro_encode_v3_o1, L.micro_encode_pass1,
+              L.micro_encode_chain):
         f.restype = ci
     return L
 
@@ -553,8 +589,9 @@ def phase_micro(rng, smi):
     and renorm-word loads switched off in turn, beside the design with a
     shared-memory tile (rans_micro.cu) and the shipped decoder on the same
     stream; (c) one barrier.cluster over 1,
-    2, 4 and 8 blocks of 1024 threads, beside __syncthreads. Prints one
-    `micro {...}` JSON line (us per step, ns per barrier)."""
+    2, 4 and 8 blocks of 1024 threads, beside __syncthreads; (d) the
+    encoders (micro_encoders). Prints one `micro {...}` JSON line (us per
+    step, ns per barrier)."""
     from genozip_tpu_torch.ops import rans_cuda, rans_torch as rt
     L = micro_lib()
     st = torch.cuda.current_stream().cuda_stream
@@ -620,19 +657,105 @@ def phase_micro(rng, smi):
         res[f"sync_{c}_ns"] = ms * 1e6 / iters
         log(f"micro {what} (1024 threads a block): "
             f"{ms * 1e6 / iters:.1f} ns per barrier")
+    res.update(micro_encoders(L, st, one_seq[0], one_qual[0]))
     log("micro " + json.dumps(res))
     return res
 
 
-AB_CASES = [  # label, kernel, order, lanes (None: choose_num_lanes)
-    ("seq_r8", "rans_decode_o0", 0, None),
-    ("rawqual_r8", "rans_decode_o1", 1, None),
-    ("qual_r8", "rans_decode_o1", 1, None),
-    ("vbseq", "rans_decode_o0", 0, None),
-    ("vbqual", "rans_decode_o1", 1, None),
-    ("vbseq_n1024", "rans_decode_o0", 0, 1024),
-    ("vbqual_n1024", "rans_decode_o1", 1, 1024),
-    ("refhash", "rans_decode_o0", 0, None),
+def micro_encoders(L, st, seq, qual):
+    """Phase 2b (d): us per step at N = 1024 and 8192 on one VB stream of
+    each order (packed SEQ, packed QUAL) for the encoder before the
+    lane-parallel redesign (csrc/rans_micro.cu), the new pass 1 alone
+    without and with its word stores, and the whole new encoder (entries,
+    stripe, pass 1, scan, scatter) through its C entry point on buffers
+    allocated once (device time) and through the wrapper (what the main
+    path pays, host work included); the old and new encoders' streams must
+    equal rans_np.encode."""
+    from genozip_tpu_torch.ops import rans_cuda, rans_np, rans_torch as rt
+    res = {}
+    # the chain floor: 16 entries of varied frequencies, no memory traffic
+    f16 = np.array([1, 2, 3, 7, 100, 255, 1000, 1365, 2047, 2049, 3000, 3500,
+                    4000, 4095, 4096, 512], np.int32)
+    tab = torch.from_numpy(np.stack([f16, (np.arange(16) * 255) % 4096])
+                           .astype(np.int32)[None])
+    ent16 = rt.enc_entries(tab)[0].numpy().astype(np.uint32).view(np.int32)
+    ent16 = torch.from_numpy(ent16.copy()).cuda()
+    sink = torch.zeros(1024, dtype=torch.int32, device="cuda")
+    K = 4096
+    for wide, what in ((1, "64-bit emit compare"), (0, "32-bit emit compare")):
+        for N in (1024, 8192):
+            ms = cuda_ms(lambda: _ok("chain", L.micro_encode_chain(
+                wide, N, K, ent16.data_ptr(), sink.data_ptr(), st)), 3)
+            res[f"enc_chain_{'u64' if wide else 'u32'}_N{N}"] = ms * 1e3 / K
+            log(f"micro encode chain floor N={N} ({what}): "
+                f"{ms * 1e3 / K:.4f} us per step ({K} steps)")
+    for order, data in ((0, seq), (1, qual)):
+        for N in (1024, 8192):
+            b = rt.prepare_encode([data], order, N)
+            n, steps = len(data), int(b.meta[0, 3])
+            dv, mv, tv = (t.cuda() for t in (b.data, b.meta, b.tab))
+            want = rans_np.encode(data, order, n_lanes=N)
+            words = torch.empty(b.n_words, dtype=torch.int16, device="cuda")
+            p = torch.empty(1, dtype=torch.int64, device="cuda")
+            states = torch.empty(b.n_states, dtype=torch.int32, device="cuda")
+            ptrs = [t.data_ptr() for t in (dv, mv, tv)]
+            outs = [t.data_ptr() for t in (words, p, states)]
+            v3 = L.micro_encode_v3_o0 if order == 0 else L.micro_encode_v3_o1
+            kfn = rans_cuda.rans_encode_o0 if order == 0 \
+                else rans_cuda.rans_encode_o1
+            work = torch.empty(rans_cuda.encode_work_bytes(order, 1, n),
+                               dtype=torch.uint8, device="cuda")
+            _ok("encode", getattr(rans_cuda.lib(), kfn.__name__)(
+                *ptrs, work.data_ptr(), *outs, 1, n, st))
+            if rt.finish_encode(b, words, p, states)[0] != want:
+                raise SystemExit("micro encode: differs from rans_np")
+            runs = [
+                ("v3", "before the redesign (block_rank a step)",
+                 lambda: _ok("encode_v3", v3(*ptrs, *outs, 1, st))),
+                ("pass1_nostore", "pass 1 alone, no word stores",
+                 lambda: _ok("pass1", L.micro_encode_pass1(
+                     order, 0, ptrs[1], ptrs[2], work.data_ptr(), outs[2], 1,
+                     n, st))),
+                ("pass1", "pass 1 alone",
+                 lambda: _ok("pass1", L.micro_encode_pass1(
+                     order, 1, ptrs[1], ptrs[2], work.data_ptr(), outs[2], 1,
+                     n, st))),
+                ("new_device", "as shipped, C entry point, buffers "
+                 "allocated once",
+                 lambda: _ok("encode", getattr(rans_cuda.lib(), kfn.__name__)(
+                     *ptrs, work.data_ptr(), *outs, 1, n, st))),
+                ("new", "as shipped through the wrapper (entries, stripe, "
+                 "pass 1, scan, scatter)",
+                 lambda: kfn(dv, mv, tv, b.n_words, b.n_states)),
+            ]
+            for key, label, fn in runs:
+                ms = cuda_ms(fn, 5)
+                if key == "v3" and \
+                        rt.finish_encode(b, words, p, states)[0] != want:
+                    raise SystemExit("micro encode_v3: differs from rans_np")
+                res[f"enc_{key}_o{order}_N{N}"] = ms * 1e3 / steps
+                log(f"micro encode o{order} N={N} {label}: {ms:.4f} ms, "
+                    f"{ms * 1e3 / steps:.4f} us per step (K={steps})")
+    return res
+
+
+AB_CASES = [  # label, streams, kernel, order, lanes (None: choose_num_lanes)
+    ("seq_r8", "seq_r8", "rans_decode_o0", 0, None),
+    ("rawqual_r8", "rawqual_r8", "rans_decode_o1", 1, None),
+    ("qual_r8", "qual_r8", "rans_decode_o1", 1, None),
+    ("vbseq", "vbseq", "rans_decode_o0", 0, None),
+    ("vbqual", "vbqual", "rans_decode_o1", 1, None),
+    ("vbseq_n1024", "vbseq", "rans_decode_o0", 0, 1024),
+    ("vbqual_n1024", "vbqual", "rans_decode_o1", 1, 1024),
+    ("refhash", "refhash", "rans_decode_o0", 0, None),
+    ("enc_seq_r8", "seq_r8", "rans_encode_o0", 0, None),
+    ("enc_rawqual_r8", "rawqual_r8", "rans_encode_o1", 1, None),
+    ("enc_qual_r8", "qual_r8", "rans_encode_o1", 1, None),
+    ("enc_vbseq", "vbseq", "rans_encode_o0", 0, None),
+    ("enc_vbqual", "vbqual", "rans_encode_o1", 1, None),
+    ("enc_seq_r8_n1024", "seq_r8", "rans_encode_o0", 0, 1024),
+    ("enc_vbseq_n1024", "vbseq", "rans_encode_o0", 0, 1024),
+    ("enc_vbqual_n1024", "vbqual", "rans_encode_o1", 1, 1024),
 ]
 AB_CHILD = """
 import json, sys
@@ -640,18 +763,19 @@ import numpy as np
 import chip_smoke
 z = np.load(sys.argv[1])
 out = {}
-for label, name, order, lanes in json.loads(sys.argv[2]):
-    keys = sorted((k for k in z.files if k.split("__")[0] == label),
+for label, streams, name, order, lanes in json.loads(sys.argv[2]):
+    keys = sorted((k for k in z.files if k.split("__")[0] == streams),
                   key=lambda k: int(k.split("__")[1]))
     datas = [z[k].tobytes() for k in keys]
-    out[label] = chip_smoke.check_kernel(name, order, False, datas, lanes,
-                                         time_plain=False)[1]
+    out[label] = chip_smoke.check_kernel(name, order,
+                                         name.startswith("rans_encode"),
+                                         datas, lanes, time_plain=False)[1]
 print("AB " + json.dumps(out))
 """
 
 
-def ab_decoders(parent, change):
-    """Times rans_decode_o0/o1 of two checkouts on the same streams, each
+def ab_kernels(parent, change):
+    """Times the four kernels of two checkouts on the same streams, each
     checkout in a fresh interpreter through its own chip_smoke.check_kernel
     (byte-checked against its plain version), in the order parent, change,
     change, parent; prints each run and the medians."""
@@ -661,8 +785,8 @@ def ab_decoders(parent, change):
     _, raw = main_path_streams(rng, sizes(), raw_qual=True)
     one_seq, one_qual = main_path_streams(rng, [VB_STREAM])
     data = {"seq_r8": seqs, "rawqual_r8": raw, "qual_r8": quals,
-            "vbseq": one_seq, "vbqual": one_qual, "vbseq_n1024": one_seq,
-            "vbqual_n1024": one_qual, "refhash": [refhash_like(rng)]}
+            "vbseq": one_seq, "vbqual": one_qual,
+            "refhash": [refhash_like(rng)]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -738,7 +862,7 @@ def main(argv=None):
                     help="comma-separated subset of " + ", ".join(PHASES) +
                     " (default: all, and only then the result lines)")
     ap.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"),
-                    help="time the decoders, then cfg3 zip and unzip, of two "
+                    help="time the kernels, then cfg3 zip and unzip, of two "
                          "checkouts in turns (parent, change, change, "
                          "parent) and stop")
     args = ap.parse_args(argv)
@@ -746,7 +870,7 @@ def main(argv=None):
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
         return 2
     if args.ab:
-        return ab_decoders(*args.ab)
+        return ab_kernels(*args.ab)
     phases = [x for x in args.phases.split(",") if x]
     unknown = set(phases) - set(PHASES)
     if unknown:

@@ -7,35 +7,58 @@
 // stream in (step, lane) order. Each kernel's output is byte-identical to
 // rans_np's (the host frames header and states).
 //
-// What the kernels replace (genozip_tpu/ops/rans_pallas.py):
-//   rans_encode_o0_kernel  <- K1 _encode_many_kernel_v6 (encode_many_v6)
-//   rans_decode_o0_kernel  <- K2 _decode_many_kernel_v6 (decode_many_v6)
-//                             and K7 _decode_many_kernel (decode_many)
-//   rans_encode_o1_kernel  <- K3 _encode_many_kernel_o1v6 (encode_many_o1_v6)
-//                             and K5 _encode_many_o1_kernel (encode_many_o1)
-//   rans_decode_o1_kernel  <- K4 _decode_many_kernel_o1v6 (decode_many_o1_v6)
-//                             and K6 _decode_many_o1_kernel (decode_many_o1)
+// What the entry points replace (genozip_tpu/ops/rans_pallas.py):
+//   rans_encode_o0  <- K1 _encode_many_kernel_v6 (encode_many_v6), and
+//                      _encode_many_kernel (encode_many) and _encode_kernel
+//                      (encode) at a fixed lane count
+//   rans_decode_o0  <- K2 _decode_many_kernel_v6 (decode_many_v6), K7
+//                      _decode_many_kernel (decode_many) and decode's kernels
+//   rans_encode_o1  <- K3 _encode_many_kernel_o1v6 (encode_many_o1_v6), K5
+//                      _encode_many_o1_kernel (encode_many_o1) and
+//                      _encode_kernel_o1 (encode_order1)
+//   rans_decode_o1  <- K4 _decode_many_kernel_o1v6 (decode_many_o1_v6), K6
+//                      _decode_many_o1_kernel (decode_many_o1) and
+//                      _decode_kernel_o1 (decode_order1)
 //
-// What bounds them on this card: not bytes or arithmetic. Every step of a
-// stream depends on the step before it, because a lane's renorm word lands at
-// a position ranked over every lane of that step, and the next step's word
-// pointer depends on how many lanes emitted. So a stream is a serial chain of
-// K = n/N steps, each a block-wide scan, and the time is K times the latency
-// of one step.
+// The TPU workarounds (float limb division, one-hot matmul lookups, lane-roll
+// scans, padded word blocks) have no place here.
 //
-// What the design does about it: one block of 1024 threads per stream and
-// one launch for R streams, so R chains run side by side on R SMs. Each
-// thread owns lanes tid + j*1024 (j < 8, N <= 8192) with their states in
-// registers. The per-step rank is a warp __ballot_sync/__popc plus one
-// exclusive scan over the warp totals in shared memory, double-buffered so a
-// step costs two barriers (rans_common.cuh). The TPU workarounds (float limb
-// division, one-hot matmul lookups, lane-roll scans, padded word blocks) have
-// no place here.
+// The encoders (rows 1, 3, 5, 8, 9 and 16 of the TPU kernel table: K1, K3,
+// K5 and the pre-v6 and single-stream encoders) are lane-parallel. A lane's
+// arithmetic reads only its own state and symbols: the emit test x >= f<<20,
+// the word x & 0xffff and x' = (x/f << 12) + x%f + c. The word pointer only
+// decides where the words land, so no step of one lane waits for another
+// lane. One encode is five or six launches on the caller's stream:
+//   * o1_enc_entries_kernel (order 1): a packed entry per (ctx, sym), with f,
+//     c and a Granlund-Montgomery reciprocal, so x/f is one umulhi and
+//     shifts (rans_common.cuh); order 0 builds its 256 in shared memory;
+//   * stripe_kernel: each stream's symbols as rows of 8-step words, lane
+//     l's steps 8b .. 8b+7 at (b, l), so a thread reads 8 steps' symbols
+//     with one 8-byte load and a warp 256 contiguous bytes;
+//   * encode_lanes_kernel: one thread per lane, a stream's lanes spread over
+//     blocks of 128 (R = 1 at N = 8192 fills 64 SMs), the state in a
+//     register for all K steps; it stores each lane's words of 8 steps in
+//     one 16-byte store to scratch and one ballot mask per warp and step,
+//     with no barrier;
+//   * scan_sums_kernel and scan_partials_kernel: an exclusive scan, per
+//     stream, of the masks' popcounts in the decoder's order (step, then
+//     lane), two-level so that a 134 MB stream's 4M masks spread over
+//     blocks; the total S gives the first word out_len - S;
+//   * scatter_kernel: each emitted word to its place.
+// What bounds them: a lane's chain of K steps (the emit compare, one umulhi,
+// shifts and a multiply-add a step: about 55 cycles on an H100, the chain
+// floor of chip_smoke.py phase 2b), and past that the bytes of the stripe,
+// the scratch and the scatter.
 //
-// The encoders divide x/f and x%f exactly in u32, with the order-0 (freq,
-// cum) table in shared memory and the order-1 tables in global memory.
-//
-// The decoders keep device memory off a step's critical path:
+// The decoders are a serial chain: a lane's next renorm word lands at a
+// position ranked over every lane of the step, and the next step's word
+// pointer depends on how many lanes emitted. So a stream is a chain of K =
+// n/N steps, each a block-wide scan, and the time is K times the latency of
+// one step. One block of 1024 threads per stream and one launch for R
+// streams, so R chains run side by side on R SMs, each thread on J = N/1024
+// consecutive lanes with their states in registers, ranked by a per-thread
+// count and two shuffle scans (block_rank_runs, rans_common.cuh), two
+// barriers a step. They keep device memory off a step's critical path:
 //   * one lookup per symbol: a packed u32 slot entry, symbol | (f-1) << 8 |
 //     (slot-cum) << 20, so x' = f * (x >> 12) + (slot - cum) needs no second
 //     table. Order 0 builds its 4096 entries in shared memory in the prologue
@@ -61,6 +84,8 @@
 // cudaGetLastError() (or the error of cudaFuncSetAttribute); the Python
 // wrapper raises when it is not 0.
 
+#include <algorithm>
+
 #include "rans_common.cuh"
 
 namespace {
@@ -77,84 +102,6 @@ constexpr int O0_ENT_BYTES = ((1 << SCALE_BITS) + 512) * 4;   // + build scratch
 template <int ORDER>
 __host__ __device__ constexpr int dec_smem() {
   return WordRing::BYTES + SCAN_BYTES + (ORDER == 0 ? O0_ENT_BYTES : 0);
-}
-
-// Encode meta row: data_off, n, N, K, out_off, state_off, out_len, 0.
-// tab: per stream, freq then cum (int32), 256 each (order 0) or 256x256
-// [ctx][sym] each (order 1). words: u16 buffer of out_len per stream, filled
-// backward; p_out: first word written; states: N final states per stream.
-template <int ORDER>
-__global__ void __launch_bounds__(NT)
-rans_encode_kernel(const uint8_t* __restrict__ data,
-                   const int64_t* __restrict__ meta,
-                   const int32_t* __restrict__ tab,
-                   uint16_t* __restrict__ words, int64_t* __restrict__ p_out,
-                   uint32_t* __restrict__ states) {
-  __shared__ uint32_t s_fc[256];
-  __shared__ uint32_t cnt[2 * JMAX * NW];
-  __shared__ uint32_t tot[2];
-  const int r = blockIdx.x, tid = threadIdx.x;
-  const int64_t* m = meta + (int64_t)r * META;
-  const int64_t n = m[1], N = m[2], K = m[3];
-  const uint8_t* d = data + m[0];
-  uint16_t* w = words + m[4];
-  const int J = (int)((N + NT - 1) / NT);
-  const int32_t* f2 = tab + (int64_t)r * 2 * 65536;   // order 1
-  const int32_t* c2 = f2 + 65536;
-  if (ORDER == 0) {
-    // (f, c) packed f | c << 16: f <= 4096, c < 4096
-    const int32_t* t0 = tab + (int64_t)r * 512;
-    for (int i = tid; i < 256; i += NT)
-      s_fc[i] = (uint32_t)t0[i] | ((uint32_t)t0[256 + i] << 16);
-    __syncthreads();
-  }
-  uint32_t x[JMAX];
-#pragma unroll
-  for (int j = 0; j < JMAX; ++j) x[j] = RANS_L;
-  int64_t p = m[6];
-  for (int64_t t = K - 1; t >= 0; --t) {
-    uint32_t fc[JMAX], act = 0, emit = 0;
-#pragma unroll
-    for (int j = 0; j < JMAX; ++j) {
-      fc[j] = 1;
-      const int64_t l = (int64_t)j * NT + tid;
-      const int64_t i = l * K + t;
-      if (j < J && l < N && i < n) {
-        const uint32_t s = d[i];
-        if (ORDER == 0) {
-          fc[j] = s_fc[s];
-        } else {
-          const uint32_t ctx = t ? d[i - 1] : 0u;
-          fc[j] = (uint32_t)f2[ctx * 256 + s] |
-                  ((uint32_t)c2[ctx * 256 + s] << 16);
-        }
-        act |= 1u << j;
-        // f << 20 in 64 bits: a one-symbol alphabet has f = 4096
-        if ((uint64_t)x[j] >= ((uint64_t)(fc[j] & 0xffffu) << 20))
-          emit |= 1u << j;
-      }
-    }
-    uint32_t rank[JMAX];
-    const uint32_t S = block_rank(emit, J, (int)(t & 1), cnt, tot, rank);
-#pragma unroll
-    for (int j = 0; j < JMAX; ++j) {
-      if ((emit >> j) & 1u) {
-        w[p - S + rank[j]] = (uint16_t)(x[j] & 0xffffu);
-        x[j] >>= 16;
-      }
-      if ((act >> j) & 1u) {
-        const uint32_t f = fc[j] & 0xffffu, c = fc[j] >> 16;
-        x[j] = ((x[j] / f) << SCALE_BITS) + (x[j] % f) + c;
-      }
-    }
-    p -= S;
-  }
-#pragma unroll
-  for (int j = 0; j < JMAX; ++j) {
-    const int64_t l = (int64_t)j * NT + tid;
-    if (j < J && l < N) states[m[5] + l] = x[j];
-  }
-  if (tid == 0) p_out[r] = p;
 }
 
 // Stream r's rows in the decoders' scratch: 16-byte aligned, K*N < n + N
@@ -337,26 +284,230 @@ int launch_decode(const void* words, const void* meta, const void* tab,
   return (int)cudaGetLastError();
 }
 
+// ---- the encoders' word placement ------------------------------------------
+
+// A stream's emit masks: K steps x ceil(N/32) warps, in the decoder's order;
+// its scan chunks: the masks of 8 steps (one block of pass 1's words)
+__device__ __forceinline__ int64_t n_masks(const int64_t* m) {
+  return m[3] * ((m[2] + 31) >> 5);
+}
+__device__ __forceinline__ int64_t n_chunks(const int64_t* m) {
+  return (m[3] + SB - 1) / SB;
+}
+
+// Inclusive sum over the block's threads (NTH a multiple of 32, at most
+// 1024) of v; `ws` holds NTH/32 words. Returns the inclusive prefix and in
+// `total` the block's sum. Ends with a barrier, so `ws` may be used again.
+template <int NTH>
+__device__ __forceinline__ uint32_t block_inclusive(uint32_t v, uint32_t* ws,
+                                                    uint32_t& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) ws[warp] = inc;
+  __syncthreads();
+  uint32_t before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < NTH / 32; ++w) {
+    const uint32_t s = ws[w];
+    before += w < warp ? s : 0u;
+    all += s;
+  }
+  __syncthreads();
+  total = all;
+  return before + inc;
+}
+
+constexpr int SCAN_T = 256;                // threads of scan_sums_kernel
+constexpr int SCATTER_T = 1024;            // threads (lanes) of scatter_kernel
+constexpr int CH_MAX = SB * MAX_LANES / 32;  // masks a chunk holds, at most
+
+// The exclusive popcount prefix of the chunk's nm masks from mask i0, from
+// `at`, into s_base (and the masks into s_mask, when given): thread k of
+// NTH takes masks [k*per, k*per + per). Returns the chunk's total.
+template <int NTH>
+__device__ __forceinline__ uint32_t chunk_scan(const uint32_t* mk, int64_t M,
+                                               int64_t i0, int nm, uint32_t at,
+                                               uint32_t* s_mask,
+                                               uint32_t* s_base, uint32_t* ws) {
+  constexpr int PER = CH_MAX / NTH;          // masks a thread takes, at most
+  const int tid = threadIdx.x, per = (nm + NTH - 1) / NTH;
+  uint32_t v[PER], cnt = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int j = tid * per + k;
+    v[k] = k < per && j < nm && i0 + j < M ? mk[i0 + j] : 0u;
+    cnt += __popc(v[k]);
+  }
+  uint32_t total;
+  at += block_inclusive<NTH>(cnt, ws, total) - cnt;
+  if (s_mask) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = tid * per + k;
+      if (k < per && j < nm) {
+        s_mask[j] = v[k];
+        s_base[j] = at;
+        at += __popc(v[k]);
+      }
+    }
+  }
+  return total;
+}
+
+// Scan level 1: the popcount sum of each chunk. Grid (any, R), SCAN_T
+// threads.
+__global__ void __launch_bounds__(SCAN_T)
+scan_sums_kernel(const int64_t* __restrict__ meta,
+                 const uint32_t* __restrict__ masks_all,
+                 uint32_t* __restrict__ sums_all) {
+  __shared__ uint32_t ws[SCAN_T / 32];
+  const int r = blockIdx.y;
+  const int64_t* m = meta + (int64_t)r * META;
+  const int64_t M = n_masks(m), base = enc_base(m, r), nch = n_chunks(m);
+  const int nm = SB * (int)((m[2] + 31) >> 5);
+  const uint32_t* mk = masks_all + (base >> 4);
+  uint32_t* sums = sums_all + (base >> 7) + r;
+  for (int64_t c = blockIdx.x; c < nch; c += gridDim.x) {
+    const uint32_t total =
+        chunk_scan<SCAN_T>(mk, M, c * nm, nm, 0u, nullptr, nullptr, ws);
+    if (threadIdx.x == 0) sums[c] = total;
+  }
+}
+
+// Scan level 2, one block per stream: the chunk sums -> their exclusive
+// prefix, in place; p_out[r] = out_len - S, the stream's first word.
+__global__ void __launch_bounds__(1024)
+scan_partials_kernel(const int64_t* __restrict__ meta,
+                     uint32_t* __restrict__ sums_all,
+                     int64_t* __restrict__ p_out) {
+  __shared__ uint32_t ws[32];
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int64_t* m = meta + (int64_t)r * META;
+  const int64_t nch = n_chunks(m);
+  uint32_t* sums = sums_all + (enc_base(m, r) >> 7) + r;
+  uint32_t run = 0;
+  for (int64_t c0 = 0; c0 < nch; c0 += 1024) {
+    const int64_t i = c0 + tid;
+    const uint32_t v = i < nch ? sums[i] : 0u;
+    uint32_t total;
+    const uint32_t inc = block_inclusive<1024>(v, ws, total);
+    if (i < nch) sums[i] = run + inc - v;
+    run += total;
+  }
+  if (tid == 0) p_out[r] = m[6] - (int64_t)run;
+}
+
+// Each emitted word (t, l), at (t/8)*8N + 8l + t%8 in pass 1's scratch, to
+// words[out_off + p_out + (words of steps < t) + (words of step t in lanes
+// < l)]. A block takes one chunk (steps 8c .. 8c+7) and SCATTER_T of its lanes:
+// each thread loads its lane's 8 words with one 16-byte load, the block
+// scans the chunk's masks from the chunk's prefix meanwhile, and the thread
+// stores its flagged words. Grid (any, R).
+__global__ void __launch_bounds__(SCATTER_T)
+scatter_kernel(const int64_t* __restrict__ meta,
+               const uint32_t* __restrict__ masks_all,
+               const uint32_t* __restrict__ sums_all,
+               const uint16_t* __restrict__ wscr_all,
+               const int64_t* __restrict__ p_out,
+               uint16_t* __restrict__ words) {
+  __shared__ uint32_t s_mask[CH_MAX], s_base[CH_MAX], ws[SCATTER_T / 32];
+  const int r = blockIdx.y, tid = threadIdx.x;
+  const int64_t* m = meta + (int64_t)r * META;
+  const int64_t N = m[2], K = m[3], M = n_masks(m), base = enc_base(m, r);
+  const int nw = (int)((N + 31) >> 5), nm = SB * nw;
+  const int64_t nch = n_chunks(m), parts = (N + SCATTER_T - 1) / SCATTER_T;
+  const uint32_t* mk = masks_all + (base >> 4);
+  const uint32_t* sums = sums_all + (base >> 7) + r;
+  const uint4* wscr = (const uint4*)(wscr_all + base);   // block c at c*N
+  uint16_t* out = words + m[4] + p_out[r];
+  for (int64_t g = blockIdx.x; g < nch * parts; g += gridDim.x) {
+    const int64_t c = g / parts, l = (g % parts) * SCATTER_T + tid;
+    const uint4 w8 = l < N ? wscr[c * N + l] : make_uint4(0u, 0u, 0u, 0u);
+    chunk_scan<SCATTER_T>(mk, M, c * nm, nm, sums[c], s_mask, s_base, ws);
+    __syncthreads();
+    if (l < N) {
+      const uint32_t wv[4] = {w8.x, w8.y, w8.z, w8.w};
+      const int w = (int)(l >> 5);
+      const uint32_t below = (1u << (l & 31)) - 1u;
+#pragma unroll
+      for (int j = 0; j < SB; ++j) {
+        const uint32_t mm = SB * c + j < K ? s_mask[j * nw + w] : 0u;
+        if ((mm >> (l & 31)) & 1u)
+          out[s_base[j * nw + w] + __popc(mm & below)] =
+              (uint16_t)(wv[j >> 1] >> (16 * (j & 1)));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int ENC_BLOCKS = 1024;   // per launch of a grid-stride pass
+
+// work: device scratch of encode_work_bytes(order, R, n) bytes
+// (ops/rans_cuda.py), laid out by EncWork (rans_common.cuh).
+template <int ORDER>
+int launch_encode(const void* data, const void* meta, const void* tab,
+                  void* work, void* words, void* p_out, void* states, int R,
+                  int64_t n, cudaStream_t stream) {
+  const EncWork wk(work, ORDER, R, n);
+  const int64_t* mp = (const int64_t*)meta;
+  const int32_t* tp = (const int32_t*)tab;
+  cudaError_t e;
+  if (ORDER == 1) {
+    o1_enc_entries_kernel<<<dim3(256, R), 256, 0, stream>>>(tp, wk.ent);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  // grid-stride passes, a column of blocks per stream sized for a stream of
+  // the mean length: stripe tiles of 32 lanes x 64 steps (about n/2048),
+  // scan chunks and scatter (chunk, 1024 lanes) items (about n/8192)
+  const int64_t mean = n / R;
+  const int gs = (int)std::min<int64_t>(mean / 2048 + 8, ENC_BLOCKS);
+  const int gc = (int)std::min<int64_t>(mean / 8192 + 8, ENC_BLOCKS);
+  stripe_kernel<<<dim3(gs, R), 256, 0, stream>>>(mp, (const uint8_t*)data,
+                                                 wk.rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  encode_lanes_kernel<ORDER, true><<<dim3(MAX_LANES / EB, R), EB, 0, stream>>>(
+      mp, tp, wk.rows, wk.ent, wk.words, wk.masks, (uint32_t*)states);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_sums_kernel<<<dim3(gc, R), SCAN_T, 0, stream>>>(mp, wk.masks, wk.sums);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_partials_kernel<<<R, 1024, 0, stream>>>(mp, wk.sums, (int64_t*)p_out);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<dim3(gc, R), SCATTER_T, 0, stream>>>(
+      mp, wk.masks, wk.sums, wk.words, (const int64_t*)p_out,
+      (uint16_t*)words);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// n: the R streams' symbols in all (data's length); work: device scratch of
+// encode_work_bytes(order, R, n) bytes (ops/rans_cuda.py). Fills words
+// backward from each stream's out_len, p_out (R) and states.
 int rans_encode_o0(const void* data, const void* meta, const void* tab,
-                   void* words, void* p_out, void* states, int R,
-                   void* stream) {
-  rans_encode_kernel<0><<<R, NT, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const int64_t*)meta, (const int32_t*)tab,
-      (uint16_t*)words, (int64_t*)p_out, (uint32_t*)states);
-  return (int)cudaGetLastError();
+                   void* work, void* words, void* p_out, void* states, int R,
+                   long long n, void* stream) {
+  return launch_encode<0>(data, meta, tab, work, words, p_out, states, R, n,
+                          (cudaStream_t)stream);
 }
 
 int rans_encode_o1(const void* data, const void* meta, const void* tab,
-                   void* words, void* p_out, void* states, int R,
-                   void* stream) {
-  rans_encode_kernel<1><<<R, NT, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const int64_t*)meta, (const int32_t*)tab,
-      (uint16_t*)words, (int64_t*)p_out, (uint32_t*)states);
-  return (int)cudaGetLastError();
+                   void* work, void* words, void* p_out, void* states, int R,
+                   long long n, void* stream) {
+  return launch_encode<1>(data, meta, tab, work, words, p_out, states, R, n,
+                          (cudaStream_t)stream);
 }
 
 // work: device scratch of decode_work_bytes(order, R, n_out) bytes

@@ -1,12 +1,19 @@
-// Microbenchmarks of the rANS decode step on Hopper (sm_90a). Not part of the
-// coder: chip_smoke.py builds this file beside rans.cu and times it.
+// Microbenchmarks of the rANS decode and encode steps on Hopper (sm_90a). Not
+// part of the coder: chip_smoke.py builds this file beside rans.cu and times
+// it.
 //
 //   micro_chain          the chain floor: K steps of the word ranking alone
 //                        (no loads, no stores), the least a one-block-per-
 //                        stream design can take, since the format chains the
 //                        steps; block_rank (lanes j*1024 + tid, as the
-//                        encoders and the decoders before this design) or
+//                        encoders and decoders before their redesigns) or
 //                        block_rank_runs (lanes tid*J + j, the decoders).
+//   micro_encode_v3_o0/1 a copy of the encoder before the lane-parallel
+//                        redesign: one block per stream, block_rank a step.
+//   micro_encode_pass1   rans.cu's encoder pass 1 (encode_lanes_kernel)
+//                        alone, with or without its word stores.
+//   micro_encode_chain   the encoder's chain floor: pass 1's arithmetic
+//                        alone, with the emit compare in 64 or 32 bits.
 //   micro_decode_v2_o0/1 a copy of the decoder as it was before the shared-
 //                        memory redesign (one byte store per lane per step
 //                        to device memory, the renorm word loaded from
@@ -329,6 +336,117 @@ sync_kernel(int iters, uint32_t* __restrict__ sink) {
   if (acc == 0x5eed5eedu) sink[threadIdx.x] = acc;
 }
 
+// ---- (d) the encoder before the lane-parallel redesign --------------------
+//
+// One 1024-thread block per stream, lanes j*1024 + tid, the symbols read
+// straight from each lane's chunk, a block_rank every step and exact u32
+// division; same arguments and output as rans.cu's encoders, no work buffer.
+template <int ORDER>
+__global__ void __launch_bounds__(NT)
+encode_v3_kernel(const uint8_t* __restrict__ data,
+                   const int64_t* __restrict__ meta,
+                   const int32_t* __restrict__ tab,
+                   uint16_t* __restrict__ words, int64_t* __restrict__ p_out,
+                   uint32_t* __restrict__ states) {
+  __shared__ uint32_t s_fc[256];
+  __shared__ uint32_t cnt[2 * JMAX * NW];
+  __shared__ uint32_t tot[2];
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int64_t* m = meta + (int64_t)r * META;
+  const int64_t n = m[1], N = m[2], K = m[3];
+  const uint8_t* d = data + m[0];
+  uint16_t* w = words + m[4];
+  const int J = (int)((N + NT - 1) / NT);
+  const int32_t* f2 = tab + (int64_t)r * 2 * 65536;   // order 1
+  const int32_t* c2 = f2 + 65536;
+  if (ORDER == 0) {
+    // (f, c) packed f | c << 16: f <= 4096, c < 4096
+    const int32_t* t0 = tab + (int64_t)r * 512;
+    for (int i = tid; i < 256; i += NT)
+      s_fc[i] = (uint32_t)t0[i] | ((uint32_t)t0[256 + i] << 16);
+    __syncthreads();
+  }
+  uint32_t x[JMAX];
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j) x[j] = RANS_L;
+  int64_t p = m[6];
+  for (int64_t t = K - 1; t >= 0; --t) {
+    uint32_t fc[JMAX], act = 0, emit = 0;
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j) {
+      fc[j] = 1;
+      const int64_t l = (int64_t)j * NT + tid;
+      const int64_t i = l * K + t;
+      if (j < J && l < N && i < n) {
+        const uint32_t s = d[i];
+        if (ORDER == 0) {
+          fc[j] = s_fc[s];
+        } else {
+          const uint32_t ctx = t ? d[i - 1] : 0u;
+          fc[j] = (uint32_t)f2[ctx * 256 + s] |
+                  ((uint32_t)c2[ctx * 256 + s] << 16);
+        }
+        act |= 1u << j;
+        // f << 20 in 64 bits: a one-symbol alphabet has f = 4096
+        if ((uint64_t)x[j] >= ((uint64_t)(fc[j] & 0xffffu) << 20))
+          emit |= 1u << j;
+      }
+    }
+    uint32_t rank[JMAX];
+    const uint32_t S = block_rank(emit, J, (int)(t & 1), cnt, tot, rank);
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j) {
+      if ((emit >> j) & 1u) {
+        w[p - S + rank[j]] = (uint16_t)(x[j] & 0xffffu);
+        x[j] >>= 16;
+      }
+      if ((act >> j) & 1u) {
+        const uint32_t f = fc[j] & 0xffffu, c = fc[j] >> 16;
+        x[j] = ((x[j] / f) << SCALE_BITS) + (x[j] % f) + c;
+      }
+    }
+    p -= S;
+  }
+#pragma unroll
+  for (int j = 0; j < JMAX; ++j) {
+    const int64_t l = (int64_t)j * NT + tid;
+    if (j < J && l < N) states[m[5] + l] = x[j];
+  }
+  if (tid == 0) p_out[r] = p;
+}
+
+// ---- (e) the encoder's chain floor -----------------------------------------
+//
+// K steps of pass 1's arithmetic alone (emit compare, ballot, umulhi
+// division, multiply-add), one thread per lane, 16 entries held in
+// registers: no loads, no stores. WIDE: the emit compare in 64 bits, as
+// encode_lanes_kernel does; else the same test in 32 bits, x > (f << 20) - 1.
+template <bool WIDE>
+__global__ void __launch_bounds__(EB)
+enc_chain_kernel(const uint2* __restrict__ ent16, int K,
+                 uint32_t* __restrict__ sink) {
+  const int lane = threadIdx.x & 31;
+  uint2 e[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) e[i] = ent16[i];
+  uint32_t x = RANS_L + threadIdx.x, mine = 0;
+  for (int t = 0; t < K; t += 16) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const uint32_t f = e[u].x & 0x1fffu, bias = (e[u].x >> 13) & 0x1fffu;
+      const bool emit = WIDE ? (uint64_t)x >= ((uint64_t)f << 20)
+                             : x > (f << 20) - 1u;
+      const uint32_t mask = __ballot_sync(0xffffffffu, emit);
+      mine = lane == u ? mask : mine;
+      const uint32_t xs = emit ? x >> 16 : x;
+      const uint32_t hi = __umulhi(xs, e[u].y);
+      const uint32_t q = (hi + ((xs - hi) >> 1)) >> (e[u].x >> 26);
+      x = xs + bias + q * ((1u << SCALE_BITS) - f);
+    }
+  }
+  if (x + mine == 0x5eed5eedu) sink[threadIdx.x] = x;   // keeps the chain
+}
+
 }  // namespace
 
 extern "C" {
@@ -393,6 +511,62 @@ int micro_cluster_sync(int cluster, int iters, void* sink, void* stream) {
   cudaError_t e = cudaLaunchKernelEx(&cfg, sync_kernel<true>, iters,
                                      (uint32_t*)sink);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the encoder before the redesign: the same output as rans_encode_o0/o1
+int micro_encode_v3_o0(const void* data, const void* meta, const void* tab,
+                       void* words, void* p_out, void* states, int R,
+                       void* stream) {
+  encode_v3_kernel<0><<<R, NT, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int64_t*)meta, (const int32_t*)tab,
+      (uint16_t*)words, (int64_t*)p_out, (uint32_t*)states);
+  return (int)cudaGetLastError();
+}
+
+int micro_encode_v3_o1(const void* data, const void* meta, const void* tab,
+                       void* words, void* p_out, void* states, int R,
+                       void* stream) {
+  encode_v3_kernel<1><<<R, NT, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int64_t*)meta, (const int32_t*)tab,
+      (uint16_t*)words, (int64_t*)p_out, (uint32_t*)states);
+  return (int)cudaGetLastError();
+}
+
+// The encoders' pass 1 alone (encode_lanes_kernel, rans_common.cuh) on a
+// work buffer whose rows and order-1 entries an earlier rans_encode_o0/o1
+// call of the same streams filled; store = 0 drops its word stores.
+int micro_encode_pass1(int order, int store, const void* meta, const void* tab,
+                       void* work, void* states, int R, long long n,
+                       void* stream) {
+  const EncWork wk(work, order, R, n);
+  const dim3 grid(NT * JMAX / EB, R);
+  auto* mp = (const int64_t*)meta;
+  auto* tp = (const int32_t*)tab;
+  auto* sp = (uint32_t*)states;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (order == 0 && store)
+    encode_lanes_kernel<0, true><<<grid, EB, 0, st>>>(mp, tp, wk.rows, wk.ent, wk.words, wk.masks, sp);
+  else if (order == 0)
+    encode_lanes_kernel<0, false><<<grid, EB, 0, st>>>(mp, tp, wk.rows, wk.ent, wk.words, wk.masks, sp);
+  else if (store)
+    encode_lanes_kernel<1, true><<<grid, EB, 0, st>>>(mp, tp, wk.rows, wk.ent, wk.words, wk.masks, sp);
+  else
+    encode_lanes_kernel<1, false><<<grid, EB, 0, st>>>(mp, tp, wk.rows, wk.ent, wk.words, wk.masks, sp);
+  return (int)cudaGetLastError();
+}
+
+// wide = 1: the emit compare in 64 bits (as shipped); 0: in 32 bits. N
+// lanes, K steps; ent16: 16 packed encode entries (rans_torch.enc_entries).
+int micro_encode_chain(int wide, int N, int K, const void* ent16, void* sink,
+                       void* stream) {
+  const int blocks = (N + EB - 1) / EB;
+  if (wide)
+    enc_chain_kernel<true><<<blocks, EB, 0, (cudaStream_t)stream>>>(
+        (const uint2*)ent16, K, (uint32_t*)sink);
+  else
+    enc_chain_kernel<false><<<blocks, EB, 0, (cudaStream_t)stream>>>(
+        (const uint2*)ent16, K, (uint32_t*)sink);
   return (int)cudaGetLastError();
 }
 

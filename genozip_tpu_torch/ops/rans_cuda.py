@@ -142,7 +142,8 @@ def lib():
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for name in ("rans_encode_o0", "rans_encode_o1"):
                 fn = getattr(L, name)
-                fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, vp]
+                fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                               ctypes.c_longlong, vp]
                 fn.restype = ci
             for name in ("rans_decode_o0", "rans_decode_o1"):
                 fn = getattr(L, name)
@@ -197,13 +198,28 @@ def _encode(order, data, meta, tab, n_words, n_states):
     p = torch.empty(R, dtype=torch.int64, device=dev)
     states = torch.empty(n_states, dtype=torch.int32, device=dev)
     if R:
+        n = data.numel()
+        work = torch.empty(encode_work_bytes(order, R, n), dtype=torch.uint8,
+                           device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = getattr(lib(), name)(
                 data.data_ptr(), meta.data_ptr(), tab.data_ptr(),
-                words.data_ptr(), p.data_ptr(), states.data_ptr(), R, stream)
+                work.data_ptr(), words.data_ptr(), p.data_ptr(),
+                states.data_ptr(), R, n, stream)
         _launch(name, rc)
     return words, p, states
+
+
+def encode_work_bytes(order: int, R: int, n: int) -> int:
+    """Device scratch of an encode launch of R streams of n symbols in all
+    (`EncWork` in csrc/rans_common.cuh): order 1's packed entries (512 KB a
+    stream), then T bytes of symbol rows (8-step words), 2T of renorm words,
+    T/4 of emit masks and the scan's chunk sums, T = n + R * ENC_PAD
+    rounded up to 64; stream r's part starts at `rans_torch.enc_bases`."""
+    T = (n + R * rans_torch.ENC_PAD + 63) & ~63
+    return (R << 19 if order == 1 else 0) + 3 * T + T // 4 + \
+        4 * ((T >> 7) + R + 1)
 
 
 def decode_work_bytes(order: int, R: int, n_out: int) -> int:

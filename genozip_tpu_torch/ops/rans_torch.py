@@ -1,7 +1,7 @@
 """RANS-W32x16 host framing and the plain PyTorch versions of the four coders.
 
 The stream format is normative in `ops.rans_np`. A batch of R
-streams is laid out flat for one launch (one block per stream on the card):
+streams is laid out flat for one launch:
 
 * encode: `prepare_encode` builds the per-stream tables and headers on the
   host and packs the symbols, `meta` rows and tables into tensors; a coder
@@ -30,6 +30,8 @@ SCALE_BITS = rans_np.SCALE_BITS
 RANS_L = rans_np.RANS_L
 MAX_LANES = 1 << 13          # rans_np.choose_num_lanes' ceiling
 META = 8                     # int64 words per stream in `meta`
+ROW_STEPS = 8                # steps a lane's row word holds (SB, rans_common.cuh)
+ENC_PAD = ROW_STEPS * MAX_LANES + 64   # encoders' scratch between streams
 
 
 class EncodeBatch:
@@ -289,6 +291,62 @@ def encode_plain(order: int, data: torch.Tensor, meta: torch.Tensor,
     live = lane < N[:, None]
     states[(soff[:, None] + lane)[live]] = _as_i32(x[live])
     return words, p, states
+
+
+def enc_bases(meta: torch.Tensor) -> torch.Tensor:
+    """Each encode stream's place in the encoders' scratch (`enc_base` in
+    csrc/rans_common.cuh): its rows at that byte, 16-byte aligned, at least
+    n + ENC_PAD - 15 bytes after the stream before."""
+    r = torch.arange(meta.shape[0], dtype=torch.int64, device=meta.device)
+    return (meta[:, 0] + r * ENC_PAD + 15) & ~15
+
+
+def stripe_rows(data: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Plain version of stripe_kernel: each encode stream's symbols as rows
+    of 8-step words, rows[base + (t // 8) * 8N + 8l + t % 8] =
+    data[data_off + l*K + t], 0 past the lane's chunk and in the top block's
+    steps K .. Kp-1 (Kp = K rounded up to 8), at base = enc_bases(meta)[r],
+    in a uint8 buffer of the rows region's length (n + R * ENC_PAD rounded
+    up to 64)."""
+    R = meta.shape[0]
+    T = (data.numel() + R * ENC_PAD + 63) & ~63
+    rows = torch.zeros(T, dtype=torch.uint8, device=data.device)
+    if R == 0:
+        return rows
+    lane, base, ln = _lanes(meta, 1, 2, 3)
+    Kmax = int(meta[:, 3].max())
+    t = torch.arange(Kmax, dtype=torch.int64, device=data.device)[None, :, None]
+    N = meta[:, 2, None, None]
+    live = t < ln[:, None, :]
+    src = meta[:, 0, None, None] + base[:, None, :] + t
+    dst = enc_bases(meta)[:, None, None] + (t // ROW_STEPS) * ROW_STEPS * N \
+        + lane[:, None, :] * ROW_STEPS + t % ROW_STEPS
+    rows[dst[live]] = data[src[live]]
+    return rows
+
+
+def enc_entries(tab: torch.Tensor) -> torch.Tensor:
+    """Packed encode entries of a (freq, cum) table, as the encode kernels
+    build them (`enc_entry` in csrc/rans_common.cuh): (R, 2, 256) -> (R, 256,
+    2) or (R, 2, 256, 256) -> (R, 256, 256, 2), int64 holding u32 values
+    [f | bias << 13 | shift << 26, m]. With l = ceil(log2 f), m = ceil(2^(32+l)
+    / f) - 2^32 and shift = l - 1, bias = cum, so that hi = umulhi(x, m), q =
+    (hi + ((x - hi) >> 1)) >> shift = x // f and x' = x + bias + q * (4096 -
+    f); f = 1 takes m = 2^32 - 1, shift 0 (q = x - 1) and bias = cum + 4095.
+    f = 0 gives [0, 0]."""
+    f = tab[:, 0].to(torch.int64)
+    c = tab[:, 1].to(torch.int64)
+    powers = torch.ones(13, dtype=torch.int64, device=tab.device) << \
+        torch.arange(13, dtype=torch.int64, device=tab.device)
+    lg = (f[..., None] > powers).sum(dim=-1)            # ceil(log2 f), f >= 1
+    M = ((1 << (32 + lg)) + f - 1) // torch.clamp(f, min=1)
+    one = f == 1
+    m = torch.where(one, torch.full_like(f, 0xFFFFFFFF), M - (1 << 32))
+    sh = torch.where(one, torch.zeros_like(f), lg - 1)
+    bias = torch.where(one, c + (1 << SCALE_BITS) - 1, c)
+    lo = f | (bias << 13) | (sh << 26)
+    ent = torch.stack([lo, m], dim=-1)
+    return torch.where((f > 0)[..., None], ent, torch.zeros_like(ent))
 
 
 def slot_entries(tab: torch.Tensor) -> torch.Tensor:

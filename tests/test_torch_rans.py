@@ -73,6 +73,118 @@ def test_slot_entries_match_the_spec():
     assert int(e1[0, :3].abs().sum()) == 0 and int(e1[0, 4:].abs().sum()) == 0
 
 
+def _umulhi(x, m):
+    """floor(x * m / 2^32) for u32 values held in int64, without overflow."""
+    return (x * (m >> 16) + ((x * (m & 0xFFFF)) >> 16)) >> 16
+
+
+def test_enc_entries_divide_exactly():
+    """The encoders' packed entries, through the reciprocal formula in int64,
+    give x // f and x % f for every f in [1, 4096], at the edges (2^16,
+    (f << 20) - 1, 2^32 - 1, k*f - 1, k*f, k*f + 1) and at 10^4 seeded u32
+    values; x' = x + bias + q * (4096 - f) is the spec's (x//f << 12) + x%f +
+    c (f = 1: q = x - 1, bias = c + 4095)."""
+    rng = np.random.default_rng(13)
+    f = np.arange(1, 4097, dtype=np.int64).reshape(16, 256)
+    c = rng.integers(0, 4096, f.shape)
+    tab = torch.from_numpy(np.stack([f, c], 1).astype(np.int32))
+    ent = rans_torch.enc_entries(tab)
+    assert ent.shape == (16, 256, 2)
+    top = (1 << 32) - 1
+    rand = torch.from_numpy(rng.integers(1, 1 << 32, 10000, dtype=np.int64))
+    for row in range(16):
+        fr = torch.from_numpy(f[row])[:, None]
+        cr = torch.from_numpy(c[row])[:, None]
+        lo, m = ent[row, :, 0:1], ent[row, :, 1:2]
+        assert torch.equal(lo & 0x1FFF, fr)
+        k = torch.tensor([2, 3, 1000, 65537], dtype=torch.int64)[None, :]
+        kmax = top // fr
+        edges = torch.cat([
+            torch.full_like(fr, 1 << 16), torch.clamp((fr << 20) - 1, max=top),
+            torch.full_like(fr, top), k * fr - 1, k * fr, k * fr + 1,
+            kmax * fr - 1, kmax * fr], dim=1)
+        edges = torch.clamp(edges, min=1, max=top)
+        x = torch.cat([edges, rand[None, :].expand(256, -1)], dim=1)
+        hi = _umulhi(x, m)
+        q = (hi + ((x - hi) >> 1)) >> ((lo >> 26) & 0xF)
+        one = fr == 1
+        assert torch.equal(torch.where(one, q + 1, q), x // fr)
+        assert torch.equal(torch.where(one, x - (q + 1), x - q * fr), x % fr)
+        bias = (lo >> 13) & 0x1FFF
+        assert torch.equal(x + bias + q * (4096 - fr),
+                           ((x // fr) << 12) + x % fr + cr)
+    zero = rans_torch.enc_entries(torch.zeros((1, 2, 256, 256),
+                                              dtype=torch.int32))
+    assert zero.shape == (1, 256, 256, 2) and int(zero.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("N", [16, 64, 1024, 8192])
+def test_stripe_rows_equal_to_matrix(N):
+    """stripe_rows (the plain stripe_kernel) holds each stream's symbols as
+    rans_np._to_matrix does, (K, N) with m[t, l] = data[l*K + t] and 0 past
+    the lane's chunk, in words of 8 steps: lane l's steps 8b .. 8b+7 at
+    (b, l), the top block's steps past K 0. Streams with short last lanes,
+    empty lanes, K not a multiple of 8 and n = 0 share one batch, each at
+    its enc_bases offset and clear of the next."""
+    rng = np.random.default_rng(N)
+    sizes = [3 * N - 1, 0, 5 * N - N // 2 + 1, N // 2 + 3, 1, 2 * N,
+             17 * N + 5]
+    datas = [rng.integers(0, 256, s, dtype=np.uint8).tobytes() for s in sizes]
+    b = rans_torch.prepare_encode(datas, 0, N)
+    rows = rans_torch.stripe_rows(b.data, b.meta).numpy()
+    bases = rans_torch.enc_bases(b.meta).numpy()
+    assert rows.shape[0] == (len(b.data) + len(datas) * rans_torch.ENC_PAD
+                             + 63) // 64 * 64
+    for r, d in enumerate(datas):
+        want, K, _ = rans_np._to_matrix(np.frombuffer(d, np.uint8), N)
+        Kp = (K + 7) // 8 * 8
+        blocks = rows[bases[r]:bases[r] + Kp * N].reshape(Kp // 8, N, 8)
+        got = blocks.transpose(0, 2, 1).reshape(Kp, N)
+        assert np.array_equal(got[:K], want)
+        assert not got[K:].any()
+        assert bases[r] % 16 == 0
+        end = bases[r + 1] if r + 1 < len(datas) else rows.shape[0]
+        assert bases[r] + Kp * N <= end
+
+
+@pytest.mark.parametrize("order", [0, 1])
+def test_encode_work_holds_every_stream(order):
+    """The encoders' scratch (EncWork): every stream's rows, words, masks
+    and chunk sums (one per 8 steps) lie inside encode_work_bytes and apart
+    from the other streams', for mixed lane counts and empty streams."""
+    rng = np.random.default_rng(order)
+    sizes = [0, 1, 20000, 16, 300000, 5, 70001, 0]
+    datas = [rng.integers(0, 4, s, dtype=np.uint8).tobytes() for s in sizes]
+    lanes = [None, 16, 8192]
+    for N in lanes:
+        b = rans_torch.prepare_encode(datas, order, N)
+        R, n = len(datas), len(b.data)
+        T = (n + R * rans_torch.ENC_PAD + 63) // 64 * 64
+        ent = R << 19 if order == 1 else 0
+        total = rans_cuda.encode_work_bytes(order, R, n)
+        bases = rans_torch.enc_bases(b.meta).tolist()
+        spans = {"rows": [], "words": [], "masks": [], "sums": []}
+        for r, m in enumerate(b.meta.tolist()):
+            K, Nr = m[3], m[2]
+            M = K * ((Nr + 31) // 32)
+            base = bases[r]
+            Kp = (K + 7) // 8 * 8
+            spans["rows"].append((ent + base, ent + base + Kp * Nr))
+            spans["words"].append((ent + T + 2 * base,
+                                   ent + T + 2 * (base + Kp * Nr)))
+            spans["masks"].append((ent + 3 * T + 4 * (base // 16),
+                                   ent + 3 * T + 4 * (base // 16 + M)))
+            s0 = (base >> 7) + r
+            spans["sums"].append((ent + 3 * T + T // 4 + 4 * s0,
+                                  ent + 3 * T + T // 4 + 4 * (s0 + Kp // 8)))
+        limits = {"rows": ent + T, "words": ent + 3 * T,
+                  "masks": ent + 3 * T + T // 4, "sums": total}
+        for key, sp in spans.items():
+            for (a0, a1), (b0, _) in zip(sp, sp[1:]):
+                assert a1 <= b0, (key, N)
+            assert sp[-1][1] <= limits[key], (key, N)
+
+
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("N", [16, 64, 1024, 8192])
 def test_plain_decode_short_last_lanes(order, N):
@@ -204,6 +316,17 @@ def test_kernels_equal_plain_on_the_card(order):
     enc = rans_cuda.encode_many(datas, order, "cuda")
     assert enc == rans_cuda.encode_many(datas, order, "cpu")
     assert rans_cuda.decode_many(enc, "cuda") == datas
+    # mixed lane counts (choose_num_lanes: 16 .. 8192) in one launch, a
+    # one-symbol stream (f = 4096) and n = 0, then every stream at N = 16
+    # and at N = 8192
+    rng = np.random.default_rng(10)
+    mixed = [rng.choice(QUALS, s).tobytes() for s in (40, 5000, 300000)]
+    mixed += [b"", b"\x07" * 100000, rng.integers(0, 256, 70000,
+                                                   dtype=np.uint8).tobytes()]
+    for lanes in (None, 16, 8192):
+        enc = rans_cuda.encode_many(mixed, order, "cuda", lanes)
+        assert enc == [rans_np.encode(d, order, n_lanes=lanes) for d in mixed]
+        assert rans_cuda.decode_many(enc, "cuda") == mixed
 
 
 # --- single-stream entry points (TPU kernel rows 8-16) ----------------------
