@@ -49,11 +49,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
    every kernel's launch count over this run must be > 0. At 2 x 16 MiB the
    --device cuda archive must equal the --device cpu one, and a --REFERENCE
    archive must unzip without --reference.
+7. cfg5 full run: a 64 MiB (on disk) coordinate-sorted BAM of 150 bp reads
+   over 32 Mbp contigs with ~8% multi-mappers (primary + secondary) and ~4%
+   split reads (primary + supplementary), BGZF at zlib level 6
+   (`synth.write_bam`); `zip --vblock 16` (REF_INTERNAL, gencomp and the SAG
+   store), `unzip` compared byte for byte with the input (the BGZF
+   re-emission is exact), `ls`; every kernel's launch count over zip plus
+   unzip must be > 0. Then the same records as 16 MiB of SAM text: the
+   --device cuda archive must equal the --device cpu one, `unzip` is byte
+   exact, `cat --head 1000` is the header and the first 1000 records, and
+   `cat --one-vb k` over every VB gives the records back in their order.
 
 Neither jax nor any module of the JAX package genozip_tpu may have been
 imported. The last two lines are a JSON object with the numbers of all
 sixteen TPU kernels' counterparts (time, plain time, bytes-or-operations
-bound, launches on the cfg4 and cfg3 paths) and {"ok": true, "device":
+bound, launches on the cfg4, cfg3 and cfg5 paths) and {"ok": true, "device":
 {...}}. Needs no network; writes under a temporary directory that it
 removes.
 """
@@ -275,9 +285,11 @@ def phase_kernels(rng):
             meas[(name, label)] = m
             mb = sum(map(len, datas)) / 1e6
             if label == "vb":
+                bms, by = bound_ms(m[3], m[4])
                 log(f"kernel {name}: {ms:.3f} ms ({mb / ms:.2f} GB/s of "
                     f"symbols) at R=1, one {mb:.2f} MB VB stream (main path), "
-                    f"plain {pms:.3f} ms")
+                    f"plain {pms:.3f} ms, bound {bms:.6f} ms ({by}, "
+                    f"{m[3]} bytes)")
             else:
                 log(f"kernel {name} {label}: {ms:.3f} ms ({mb / ms:.1f} GB/s "
                     f"of symbols), plain {pms:.3f} ms, R={R}, {mb:.1f} MB")
@@ -533,6 +545,115 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=256):
     log(f"cfg4: 2 x 16 MiB archives equal from cuda and cpu "
         f"({os.path.getsize(za)} bytes); --REFERENCE archive "
         f"({os.path.getsize(zs)} bytes) unzipped without --reference")
+    return counts
+
+
+def _bam_txt_len(path):
+    """Bytes of a BGZF file's uncompressed stream."""
+    import gzip
+    n = 0
+    with gzip.open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(16 * MIB), b""):
+            n += len(chunk)
+    return n
+
+
+def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
+    """Phase 7. Returns the launch counts of the BAM run (zip + unzip)."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.piz_pipeline import PizReader
+    from genozip_tpu_torch.zip_pipeline import profiler
+    bam = os.path.join(tmp, "cfg5.bam")
+    t = time.time()
+    disk = synth.write_bam(bam, bam_mib * MIB, seed=5)
+    txt = _bam_txt_len(bam)
+    log(f"cfg5: generated a {disk} byte BAM ({txt} bytes of BAM stream) in "
+        f"{time.time() - t:.1f} s")
+    z, out = bam + ".gxz", os.path.join(tmp, "cfg5.out.bam")
+    torch.cuda.synchronize()
+    profiler.reset()
+    rans_cuda.reset_launches()
+    t = time.time()
+    run_cli(["zip", bam, "-o", z, "--device", "cuda", "--vblock", "16",
+             "-q"])
+    tz = time.time() - t
+    zip_regions = profiler.report()
+    profiler.reset()
+    t = time.time()
+    run_cli(["unzip", z, "-o", out, "--device", "cuda"])
+    tu = time.time() - t
+    unzip_regions = profiler.report()
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    ls = run_cli(["ls", z], True).decode()
+    if not same_file(bam, out):
+        raise SystemExit("cfg5: unzip output differs from the input BAM")
+    if str(txt) not in ls.replace(",", ""):
+        raise SystemExit(f"cfg5: ls does not show {txt} bytes:\n{ls}")
+    pr = PizReader(z)
+    h = pr.file_hdr
+    pr.close()
+    if not (h["ref_internal"] and h["gencomp"] and h["mgzip"]["exact"]):
+        raise SystemExit(f"cfg5: expected REF_INTERNAL, gencomp and exact "
+                         f"BGZF, got {h['ref_internal']}, {h['gencomp']}, "
+                         f"{h['mgzip']}")
+    zsize = os.path.getsize(z)
+    log(f"cfg5: zip {disk / 1e6 / tz:.2f} MB/s on disk, {txt / 1e6 / tz:.2f} "
+        f"MB/s of BAM stream ({tz:.1f} s); unzip {disk / 1e6 / tu:.2f} / "
+        f"{txt / 1e6 / tu:.2f} MB/s ({tu:.1f} s); ratio {disk / zsize:.3f} "
+        f"on disk, {txt / zsize:.3f} of BAM stream ({zsize} bytes); "
+        f"{h['num_vbs']} MAIN VBs, gencomp {h['gencomp']}; on {smi}")
+    log("cfg5: zip --show-time regions:\n" + zip_regions)
+    log("cfg5: unzip --show-time regions:\n" + unzip_regions)
+    log("cfg5: ls", ls.strip().splitlines()[-1])
+    log(f"cfg5: launches over zip + unzip {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"cfg5: kernels never launched: {missing}")
+    for p in (bam, z, out):
+        os.remove(p)
+
+    # the same records as SAM text: device equals host, unzip, cat
+    sam = os.path.join(tmp, "cfg5.sam")
+    size = synth.write_sam(sam, sam_mib * MIB, seed=5)
+    za, zb = sam + ".cuda.gxz", sam + ".cpu.gxz"
+    for dev, zz in (("cuda", za), ("cpu", zb)):
+        t = time.time()
+        run_cli(["zip", sam, "-o", zz, "--device", dev, "--vblock",
+                 str(max(1, sam_mib // 4)), "-q"])
+        log(f"cfg5: {size} bytes of SAM zip --device {dev} "
+            f"{time.time() - t:.1f} s")
+    if not same_file(za, zb):
+        raise SystemExit("cfg5: CUDA and CPU SAM archives differ")
+    run_cli(["unzip", za, "-o", sam + ".out", "--device", "cuda"])
+    if not same_file(sam, sam + ".out"):
+        raise SystemExit("cfg5: SAM unzip output differs from the input")
+    with open(sam, "rb") as f:
+        orig = f.read()
+    hdr_len = 0
+    while orig.startswith(b"@", hdr_len):
+        hdr_len = orig.index(b"\n", hdr_len) + 1
+    lines = orig[hdr_len:].splitlines(keepends=True)
+    head = run_cli(["cat", za, "--head", "1000", "--device", "cuda"], True)
+    if head != orig[:hdr_len] + b"".join(lines[:1000]):
+        raise SystemExit("cfg5: cat --head 1000 differs from the input")
+    pr = PizReader(za)
+    nvb, gc = pr.num_vbs(), pr.file_hdr["gencomp"]
+    pr.close()
+    if nvb < 3 or not gc:
+        raise SystemExit(f"cfg5: SAM archive has {nvb} VBs, gencomp {gc}")
+    pieces = [run_cli(["cat", za, "--one-vb", str(k), "--no-header",
+                       "--device", "cuda"], True) for k in range(1, nvb + 1)]
+    if b"".join(pieces) != orig[hdr_len:] or not all(pieces):
+        raise SystemExit("cfg5: cat --one-vb k over the VBs does not give "
+                         "the records back in their order")
+    log(f"cfg5: SAM archives equal from cuda and cpu "
+        f"({os.path.getsize(za)} bytes, {nvb} VBs, gencomp {gc}); unzip "
+        f"exact; cat --head 1000 and cat --one-vb 1..{nvb} "
+        f"({[len(p) for p in pieces]} bytes) equal the input")
+    for p in (sam, za, zb, sam + ".out"):
+        os.remove(p)
     return counts
 
 
@@ -853,7 +974,7 @@ def ab_cfg3(parent, change, smi):
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
-PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4")
+PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5")
 
 
 def main(argv=None):
@@ -895,7 +1016,7 @@ def main(argv=None):
     rans_cuda.lib()
 
     rng = np.random.default_rng(2024)
-    meas, counts3, counts4 = {}, None, None
+    meas, counts3, counts4, counts5 = {}, None, None, None
     if "kernels" in phases:                         # 2
         meas.update(phase_kernels(rng))
     if "micro" in phases:                           # 2b
@@ -907,6 +1028,8 @@ def main(argv=None):
             meas.update(phase_entry(rng))           # 5
         if "cfg4" in phases:
             counts4 = phase_cfg4(tmp, smi)          # 6
+        if "cfg5" in phases:
+            counts5 = phase_cfg5(tmp, smi)          # 7
     if "jax" in sys.modules or any(
             k == "genozip_tpu" or k.startswith("genozip_tpu.")
             for k in sys.modules):
@@ -927,7 +1050,8 @@ def main(argv=None):
                      "port_kernel": name,
                      "entry": f"genozip_tpu_torch.ops.rans_cuda.{entry}",
                      "shape": label, "bytes": nbytes,
-                     "launches_cfg3": counts3[name]})
+                     "launches_cfg3": counts3[name],
+                     "launches_cfg5": counts5[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""CLI: zip / unzip / cat / ls for FASTQ, single-end or paired, with or
-without a reference genome, and `zip --make-reference` for FASTA.
+"""CLI: zip / unzip / cat / ls for FASTQ (single-end or paired), SAM and BAM,
+with or without a reference genome, and `zip --make-reference` for FASTA.
 
 Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
 where the rANS kernels run: `cuda` (default; raises when no GPU is present)
@@ -13,8 +13,10 @@ import argparse
 import os
 import sys
 
-# zip options of genozip_tpu whose paths this package has not ported yet
+# zip and cat options of genozip_tpu whose paths this package has not
+# ported yet
 _ZIP_NOT_PORTED = ("deep", "bamass")
+_CAT_NOT_PORTED = ("sam", "bam", "bai", "cram", "coverage", "idxstats")
 
 
 def _device_arg(p):
@@ -91,6 +93,9 @@ def build_parser():
     c.add_argument("--interleave", action="store_true",
                    help="interleave R1/R2 records of a paired archive")
     c.add_argument("--reference", default=None)
+    for flag in _CAT_NOT_PORTED:
+        c.add_argument(f"--{flag}", action="store_true",
+                       help=argparse.SUPPRESS)
     _device_arg(c)
 
     l = sub.add_parser("ls", help="list archive metadata")
@@ -125,6 +130,10 @@ def main(argv=None):
             out = args.input + ".out"
         piz_file(args.input, out, reference=args.reference)
     elif args.cmd == "cat":
+        unported = [f for f in _CAT_NOT_PORTED if getattr(args, f)]
+        if unported:
+            raise NotImplementedError(
+                f"cat --{unported[0]}: not yet ported to genozip_tpu_torch")
         from .filters import cat_filtered
         cat_filtered(args, sys.stdout.buffer)
     elif args.cmd == "ls":

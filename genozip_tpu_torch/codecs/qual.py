@@ -84,6 +84,11 @@ def _hp_runs(base: np.ndarray, start: np.ndarray):
     return run_len, pos_in_run
 
 
+def n_channels(cls: str) -> int:
+    return {"smux": 5, "pacb": 7, "pacbx": 448, "longr": 100, "tmpl": 64,
+            "homp": 70}[cls]
+
+
 def _k_value(base, start):
     """PacBio K-value per byte (codec_pacb.c:19 concept, vectorized)."""
     run_len, pos_in_run = _hp_runs(base, start)
@@ -175,3 +180,35 @@ def choose_class(seq: Col, qual: Col, sample: int = 1 << 18):
         if sz < best_size:
             best, best_size = cls, sz
     return best
+
+
+_COMP = np.arange(256, dtype=np.uint8)
+for _a, _b in zip(b"ACGTNacgtn", b"TGCANtgcan"):
+    _COMP[_a] = _b
+
+
+def orient(col: Col, rev: np.ndarray, comp: bool = False) -> Col:
+    """Reverse (and optionally base-complement) the rows where rev is True —
+    the NORMQ role (src/codec_normq.c): restore machine orientation of
+    revcomped SAM reads so cycle/context channels line up across strands.
+    Involutive: orient(orient(x, m), m) == x."""
+    if not rev.any():
+        return Col(col.data.copy() if comp else col.data, col.offsets)
+    total = col.data.shape[0]
+    it = np.int32 if total < (1 << 31) else np.int64
+    lens = col.lens
+    # flat index math only over the REVERSED rows' bytes
+    ridx = np.nonzero(rev)[0]
+    rlens = lens[ridx].astype(it)
+    roffs = col.offsets[ridx].astype(it)
+    nb = int(rlens.sum())
+    byte_row = np.repeat(np.arange(ridx.shape[0], dtype=it), rlens)
+    pos = np.arange(nb, dtype=it) - np.repeat(
+        np.concatenate([np.zeros(1, it), np.cumsum(rlens, dtype=it)[:-1]]),
+        rlens)
+    dst = roffs[byte_row] + pos
+    src = roffs[byte_row] + rlens[byte_row] - 1 - pos
+    data = col.data.copy()
+    rb = col.data[src]
+    data[dst] = _COMP[rb] if comp else rb
+    return Col(data, col.offsets)

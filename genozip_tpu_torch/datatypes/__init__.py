@@ -1,5 +1,5 @@
-"""Datatype plugin registry: FASTQ, single-end or paired, with or without a
-reference genome.
+"""Datatype plugin registry: FASTQ (single-end or paired), SAM and BAM, with
+or without a reference genome.
 
 Counterpart of genozip_tpu/datatypes/__init__.py. Other datatypes are
 detected as the reference detects them and refused with "not yet ported".
@@ -102,6 +102,23 @@ class DataType:
     def recon_vb(self, pctxs: dict, meta: dict) -> bytes:
         raise NotImplementedError
 
+    def split_records(self, data: np.ndarray):
+        """Record boundaries for gencomp re-interleaving (each row includes
+        its terminator). Default: newline-terminated lines; binary
+        datatypes (BAM) override with their record framing."""
+        from ..utils.ragged import Col
+        nl = np.nonzero(data == ord("\n"))[0]
+        if data.shape[0] and (nl.shape[0] == 0 or
+                              nl[-1] != data.shape[0] - 1):
+            nl = np.concatenate([nl, [data.shape[0] - 1]])
+        return Col(data, np.concatenate([[0], nl + 1]))
+
+    def build_sag_store(self, prim_data: np.ndarray):
+        """SAG store from the PRIM component's bytes (reference
+        src/sam_sag_ingest.c / sam_sag_load.c roles, called identically at
+        ZIP and PIZ). Datatypes without gencomp return None."""
+        return None
+
 
 _REGISTRY = {}
 
@@ -112,11 +129,11 @@ def register(cls):
 
 
 def get(name: str) -> type:
-    from . import fastq  # noqa: F401
+    from . import fastq, sam, bam  # noqa: F401
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"datatype {name!r}: not yet ported to genozip_tpu_torch "
-            "(FASTQ only)")
+            "(FASTQ, SAM and BAM only)")
     return _REGISTRY[name]
 
 

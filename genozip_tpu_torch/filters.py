@@ -1,12 +1,16 @@
-"""`cat` output filters for FASTQ archives: --head/--tail/--grep/--downsample/
---header-only/--seq-only/--qual-only/--one-vb, and for paired archives
---r1/--r2 (one component) and --interleave (records alternating R1/R2).
+"""`cat` output filters for FASTQ, SAM and BAM archives: --head/--tail/--grep/
+--downsample/--header-only/--seq-only/--qual-only/--one-vb, and for paired
+archives --r1/--r2 (one component) and --interleave (records alternating
+R1/R2). A BAM archive takes only the filters that keep whole VBs
+(--header-only, --one-vb).
 
 Counterpart of genozip_tpu/filters.py `cat_filtered` and `cat_interleaved`
 (reference src/writer.c:544-663). --tail and --downsample without --grep are
 plan edits (writer_plan.py): VBs wholly outside the range are never
 reconstructed. --grep is a per-record predicate applied by the plan executor.
-Every filter applies to interleaved records too.
+Every filter applies to interleaved records too. --one-vb N on a gencomp
+archive drains the deported lines of VBs 1..N-1, so VB N gets its own
+(genozip_tpu's filters.py:130-134 drops them: fault F3).
 """
 
 from . import writer_plan as wp
@@ -23,6 +27,14 @@ def cat_filtered(args, out):
 
 def _cat(pr, args, out):
     dt_name = pr.file_hdr["dt"]
+    if dt_name == "bam":
+        per_record = [f for f in ("head", "tail", "grep", "downsample",
+                                  "seq_only", "qual_only", "r1", "r2",
+                                  "interleave") if getattr(args, f, None)]
+        if per_record:
+            raise NotImplementedError(
+                f"cat --{per_record[0].replace('_', '-')} of a BAM archive "
+                "(its records are binary; cat --sam is not yet ported)")
     lines_per_rec = 4 if dt_name == "fastq" else 1
     grep = args.grep.encode() if getattr(args, "grep", None) else None
     head = getattr(args, "head", None)
@@ -59,17 +71,25 @@ def _cat(pr, args, out):
         out.write(pr.txt_header(0))
         return
     if getattr(args, "one_vb", None):
-        plan = [it for it in plan if it.vb_i == args.one_vb]
+        plan = wp.edit_one_vb(plan, args.one_vb)
     transform = None
     proj = ("seq" if getattr(args, "seq_only", False) else
             "qual" if getattr(args, "qual_only", False) else None)
     if proj is not None:
-        # one SEQ or QUAL line per record
-        k = {"seq": 1, "qual": 3}[proj]
+        # one SEQ or QUAL line per record: FASTQ lines 1 and 3, SAM
+        # columns 9 and 10
+        if dt_name == "fastq":
+            k = {"seq": 1, "qual": 3}[proj]
 
-        def transform(rec: bytes) -> bytes | None:
-            parts = rec.split(b"\n")
-            return parts[k] + b"\n" if len(parts) > k else None
+            def transform(rec: bytes) -> bytes | None:
+                parts = rec.split(b"\n")
+                return parts[k] + b"\n" if len(parts) > k else None
+        else:
+            k = {"seq": 9, "qual": 10}[proj]
+
+            def transform(rec: bytes) -> bytes | None:
+                cols = rec.rstrip(b"\n").split(b"\t")
+                return cols[k] + b"\n" if len(cols) > k else None
     wp.execute_plan(pr, plan, out, lines_per_rec=lines_per_rec,
                     predicate=predicate, head=head, tail=tail,
                     no_header=getattr(args, "no_header", False)

@@ -1,4 +1,4 @@
-"""PIZ pipeline: reconstruct the FASTQ file(s) of a GXZ archive.
+"""PIZ pipeline: reconstruct the FASTQ, SAM or BAM file(s) of a GXZ archive.
 
 Counterpart of genozip_tpu/piz_pipeline.py: read the global area (dicts)
 once, then per VB read and uncompress the context sections, reconstruct with
@@ -6,9 +6,14 @@ the datatype plugin and verify the VB digest; each component's digest is
 checked at the end. A VB's RANS0 and RANS1 sections of the device size decode
 in one launch per order, whatever their number. Archives made with
 --reference take the genome from --reference or, when the archive stores the
-ranges it used (--REFERENCE), from the archive. Paired (R2) components
-resolve "pair-identical" sections from the R1 component and add R1 GPOS back
-to delta-coded R2 GPOS (reference src/piz.c:450-544).
+ranges it used (--REFERENCE), from the archive; SAM/BAM archives made
+without one carry their denovo genome (REF_INTERNAL). Paired (R2)
+components resolve "pair-identical" sections from the R1 component and add
+R1 GPOS back to delta-coded R2 GPOS (reference src/piz.c:450-544). SAM/BAM
+gencomp archives reconstruct their PRIM and DEPN components first and
+re-interleave their lines into the MAIN VBs, in VB order
+(src/gencomp_piz.c). A .bam/.gz output is BGZF, byte-exact where the
+archive recorded the input's blocks and zlib level (src/mgzip.c).
 
 Reference parity: src/piz.c:880 piz_one_txt_file / :381 piz_reconstruct_one_vb.
 """
@@ -28,7 +33,8 @@ from .datatypes import get
 from .format import sections as fmt
 from .ops import pack as packops
 from .ref.refstore import RefGenome, load_ref_file
-from .utils import profiler
+from .utils import profiler, ragged
+from .utils.bgzf import ExactBgzfWriter, MgzipExactWriter, open_bgzf
 from .utils.ragged import Col
 
 
@@ -37,17 +43,25 @@ def _not_ported(what):
 
 
 def _stored_ref(payload: bytes) -> RefGenome:
-    """REF_EXT_STORE: the genome ranges an archive stores (contigs json,
-    (start, len) ranges, 2-bit codes per range); bases outside them are 0."""
+    """The genome an archive stores (REF_EXT_STORE under --REFERENCE, or
+    REF_INTERNAL's denovo genome): contigs json, (start, len) ranges, 2-bit
+    codes per range; bases outside them are 0. REF_INTERNAL archives of
+    the round-4 format hold the whole genome instead of ranges."""
     ml = int.from_bytes(payload[0:4], "little")
     meta = fmt.json_parse(payload[4:4 + ml])
-    codes = np.zeros(meta["length"], np.uint8)
     off = 4 + ml
-    for s, l in meta["ranges"]:
-        nb = (l + 3) // 4
-        codes[s:s + l] = packops.unpack_np(
-            np.frombuffer(payload[off:off + nb], np.uint8), 2, l)
-        off += nb
+    if "ranges" in meta:
+        codes = np.zeros(meta["length"], np.uint8)
+        for s, l in meta["ranges"]:
+            nb = (l + 3) // 4
+            codes[s:s + l] = packops.unpack_np(
+                np.frombuffer(payload[off:off + nb], np.uint8), 2, l)
+            off += nb
+    else:   # legacy whole-genome layout
+        pl = int.from_bytes(payload[off:off + 8], "little")
+        off += 8
+        codes = packops.unpack_np(
+            np.frombuffer(payload[off:off + pl], np.uint8), 2, meta["length"])
     return RefGenome(codes, meta["contigs"])
 
 
@@ -70,15 +84,15 @@ class PizReader:
         if payload is None:
             raise ValueError("missing file header")
         self.file_hdr = h = fmt.json_parse(payload)
-        for key, what in (("ref_internal", "archive with an internal reference"),
-                          ("deep", "--deep archive"),
-                          ("gencomp", "archive with gencomp components"),
+        for key, what in (("deep", "--deep archive"),
                           ("enc", "encrypted archive")):
             if h.get(key):
                 raise _not_ported(what)
         if h.get("components") and not h.get("pair"):
             raise _not_ported("multi-component archive")
         ref = None
+        if h.get("ref_internal"):
+            ref = _stored_ref(self.zr.read_one(fmt.SEC_REFERENCE)[0])
         if h.get("ref_stored") and not reference:
             ref = _stored_ref(self.zr.read_one(fmt.SEC_REFERENCE)[0])
         elif reference:
@@ -92,6 +106,15 @@ class PizReader:
             cdt.missing_ref = h.get("reference") if ref is None else None
             self.dts.append(cdt)
         self.dt = self.dts[0]
+        # the PRIM and DEPN components reconstruct on an instance of their
+        # own, which holds the SAG store (reference src/sam_sag_load.c)
+        self.gc_dt = None
+        if h.get("gencomp"):
+            self.gc_dt = get(h["dt"])(segconf)
+            self.gc_dt.ref = ref
+            self.gc_dt.missing_ref = self.dt.missing_ref
+        self._gc_loaded = False
+        self._gc_prim = self._gc_depn = None
         self.io_lock = threading.Lock()
         self.dicts = {}
         for ent in self.zr.sections(fmt.SEC_DICT):
@@ -189,9 +212,86 @@ class PizReader:
         return vb_hdr, sec, pair_sec
 
     def read_vb(self, vb_i: int, comp_i: int = 0) -> bytes:
-        return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i, comp_i)
+        """VB `vb_i` of component `comp_i`; a MAIN VB of a gencomp archive
+        comes back with its deported lines re-interleaved, so MAIN VBs must
+        be read (or drained) in order."""
+        gc = comp_i == 0 and self.ensure_gencomp()
+        out, pctxs = self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
+                                          comp_i, want_pctxs=True)
+        return self.merge_vb_gencomp(out, pctxs) if gc else out
 
-    def recon_loaded_vb(self, loaded, vb_i: int, comp_i: int = 0) -> bytes:
+    def ensure_gencomp(self) -> bool:
+        """Load the PRIM/DEPN record queues and the SAG store, once, if the
+        archive has gencomp components. Every MAIN-component consumer
+        calls it before reconstructing MAIN VBs."""
+        if self._gc_loaded:
+            return self._gc_depn is not None
+        self._gc_loaded = True
+        gc = self.file_hdr.get("gencomp")
+        if not gc:
+            return False
+        with profiler.timer("piz:gencomp-load"):
+            prim = self._read_component(1, gc.get("prim_vbs", 0))
+            self._gc_prim = _GcQueue(prim, self.gc_dt)
+            if prim.shape[0]:
+                # SAG store before DEPN recon (reference sam_sag_load.c)
+                self.gc_dt.sag_store = self.gc_dt.build_sag_store(prim)
+            self._gc_depn = _GcQueue(
+                self._read_component(2, gc.get("depn_vbs", 0)), self.gc_dt)
+        return True
+
+    def _read_component(self, comp_i: int, nvbs: int) -> np.ndarray:
+        txt = b"".join(
+            self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i, comp_i)
+            for vb_i in range(1, nvbs + 1))
+        return np.frombuffer(txt, np.uint8)
+
+    def merge_vb_gencomp(self, out: bytes, pctxs: dict) -> bytes:
+        """Re-interleave a reconstructed MAIN VB's deported lines, at the
+        positions its GPPOS/GCPOS contexts hold (vectorized ragged merge).
+        Call in MAIN-VB order: the queues are consumed front to back."""
+        e = np.zeros(0, np.int64)
+        pp = pctxs.get("GPPOS")
+        dp = pctxs.get("GCPOS")
+        if pp is None and dp is None:
+            return out
+        prim_pos = pp.nums() if pp is not None else e
+        depn_pos = dp.nums() if dp is not None else e
+        main_col = self.dt.split_records(np.frombuffer(out, np.uint8))
+        n_main = len(main_col)
+        total = n_main + prim_pos.shape[0] + depn_pos.shape[0]
+        deported = np.zeros(total, bool)
+        deported[prim_pos] = True
+        deported[depn_pos] = True
+        main_idx = np.nonzero(~deported)[0]
+        if main_idx.shape[0] != n_main:
+            raise ValueError("gencomp plan mismatch")
+        parts = [(main_idx, main_col)]
+        if prim_pos.shape[0]:
+            parts.append((prim_pos, self._gc_prim.take(prim_pos.shape[0])))
+        if depn_pos.shape[0]:
+            parts.append((depn_pos, self._gc_depn.take(depn_pos.shape[0])))
+        return ragged.merge_rows(total, parts).data.tobytes()
+
+    def gencomp_counts(self, vb_i: int):
+        """(deported PRIM lines, deported DEPN lines) of MAIN VB `vb_i`."""
+        with self.io_lock:
+            sec = self._load_ctx_sections(vb_i, 0, ["GPPOS", "GCPOS"])
+        return tuple(
+            0 if sec.get(nm, {}).get("local") is None
+            else sec[nm]["local"][0].shape[0] for nm in ("GPPOS", "GCPOS"))
+
+    def drain_vb_gencomp(self, vb_i: int):
+        """Consume a skipped MAIN VB's share of the PRIM/DEPN queues without
+        reconstructing it."""
+        k_prim, k_depn = self.gencomp_counts(vb_i)
+        self._gc_prim.skip(k_prim)
+        self._gc_depn.skip(k_depn)
+
+    def recon_loaded_vb(self, loaded, vb_i: int, comp_i: int = 0,
+                        want_pctxs: bool = False):
+        """Reconstruct one loaded VB: its bytes, and with `want_pctxs` also
+        its contexts."""
         vb_hdr, sec, pair_sec = loaded
         pctxs = {}
         for name, cm in vb_hdr["ctxs"].items():
@@ -217,15 +317,16 @@ class PizReader:
         meta["num_lines"] = vb_hdr["n"]
         if meta.get("gpos_pair_delta") and comp_i == 1:
             self._apply_gpos_pair_delta(pctxs, vb_i)
+        dt = self.dts[comp_i] if comp_i < len(self.dts) else self.gc_dt
         with profiler.timer("piz:recon"):
-            out = self.dts[comp_i].recon_vb(pctxs, meta)
+            out = dt.recon_vb(pctxs, meta)
         if len(out) != vb_hdr["len"]:
             raise ValueError(f"VB {vb_i}: length {len(out)} != {vb_hdr['len']}")
         # archives written by genozip_tpu with its C++ host runtime also
         # carry an xxh64 digest ("x64"); the adler32 one is always there
         if zlib.adler32(out) != vb_hdr["adler"]:
             raise ValueError(f"VB {vb_i}: digest mismatch")
-        return out
+        return (out, pctxs) if want_pctxs else out
 
     def _apply_gpos_pair_delta(self, pctxs, vb_i):
         """R2 GPOS was stored as a delta against R1's GPOS for reads aligned
@@ -243,6 +344,24 @@ class PizReader:
 
     def close(self):
         self.f.close()
+
+
+class _GcQueue:
+    """Sequential record queue over a gencomp component's bytes (one
+    record-boundary scan through the datatype's framing: newlines for SAM,
+    the block_size chain for BAM)."""
+
+    def __init__(self, data: np.ndarray, dt):
+        self.col = dt.split_records(data)
+        self.cursor = 0
+
+    def take(self, k: int) -> Col:
+        sub = ragged.take(self.col, np.arange(self.cursor, self.cursor + k))
+        self.cursor += k
+        return sub
+
+    def skip(self, k: int):
+        self.cursor += k
 
 
 def piz_file(z_path: str, out_path: str | None = None,
@@ -264,12 +383,32 @@ def piz_file(z_path: str, out_path: str | None = None,
         pr.close()
 
 
+def _open_sink(pr, out_path):
+    """The output file: BGZF (or another gz dialect) for .gz/.bgz/.bam,
+    re-emitted byte-exactly where the archive recorded how (SEC_GZ_ISIZES,
+    a zlib level), else plain."""
+    if not out_path:
+        return None
+    if not out_path.endswith((".gz", ".bgz", ".bam")):
+        return open(out_path, "wb")
+    mg = pr.file_hdr.get("mgzip")
+    isz_payload, _ = pr.zr.read_one(fmt.SEC_GZ_ISIZES)
+    if not (mg and mg.get("exact") and isz_payload is not None
+            and mg.get("lib", "zlib") == "zlib"):
+        return open_bgzf(out_path)
+    isizes = np.frombuffer(isz_payload, "<u4")
+    header = bytes.fromhex(mg["header"])
+    if mg.get("kind", "bgzf") == "bgzf":
+        return ExactBgzfWriter(open(out_path, "wb"), isizes, mg["level"],
+                               header)
+    return MgzipExactWriter(open(out_path, "wb"), isizes, mg["level"], header)
+
+
 def _piz(pr, comp_i, out_path):
     h = pr.file_hdr
     comp = pr.components()[comp_i]
-    if out_path and out_path.endswith((".gz", ".bgz", ".bam")):
-        raise _not_ported("gz output")
-    sink = open(out_path, "wb") if out_path else None
+    gc = comp_i == 0 and pr.ensure_gencomp()
+    sink = _open_sink(pr, out_path)
     try:
         md5 = hashlib.md5() if comp_i == 0 and h.get("md5") else None
         adler = zlib.adler32(b"")
@@ -287,12 +426,16 @@ def _piz(pr, comp_i, out_path):
         workers = min(os.cpu_count() or 2, 8)
 
         def work(vb_i):
-            return pr.recon_loaded_vb(pr.load_vb(vb_i, comp_i), vb_i, comp_i)
+            return pr.recon_loaded_vb(pr.load_vb(vb_i, comp_i), vb_i, comp_i,
+                                      want_pctxs=True)
 
         def drain(fut):
             nonlocal adler, total
-            out = fut.result()
+            out, pctxs = fut.result()
             with profiler.timer("piz:drain"):
+                if gc:
+                    # in MAIN-VB order, on this thread only
+                    out = pr.merge_vb_gencomp(out, pctxs)
                 adler = zlib.adler32(out, adler)
                 if md5:
                     md5.update(out)

@@ -1,8 +1,9 @@
 """Shared segmentation helpers: the vectorized tokenizer.
 
-Counterpart of genozip_tpu/seg.py, unchanged in behaviour.
 Reference parity: src/tokenizer.c (fallback field splitter), src/qname.c +
 src/qname_flavors.h (70 qname flavor templates), src/seg.c seg helpers.
+Counterpart of genozip_tpu/seg.py, unchanged in behaviour.
+
 Design: instead of per-line flavor matching, a whole column is
 split in one pass into digit-runs and a *template* (digit runs replaced by a
 placeholder byte). Rows sharing a template hit the same dict word; numeric
@@ -15,9 +16,9 @@ system achieves, without the template catalog.
 
 import numpy as np
 
-from .contexts import VBCtx, MODE_DICT, MODE_NUM, dedup_col
 from .utils import ragged
 from .utils.ragged import Col
+from .contexts import VBCtx, MODE_DICT, MODE_NUM, dedup_col
 
 TOK_MARK = 0x01          # placeholder byte for a numeric run inside a template
 MAX_NUM_LEN = 18         # digit runs longer than this stay literal
@@ -27,7 +28,8 @@ MAX_TOKENS = 32          # digit runs beyond this stay literal
 
 def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
     """Vectorized numpy tokenizer, bit-exact with genozip_tpu's C++
-    gxz_tokenize (same keep rules, same output streams). Returns (tmpl_data u8, tmpl_lens i64, vals i64, tok_idx i32, widths
+    gxz_tokenize (same keep rules, same output streams).
+    Returns (tmpl_data u8, tmpl_lens i64, vals i64, tok_idx i32, widths
     u8): kept digit runs are replaced by TOK_MARK in the template and
     emitted row-major with their run width (so zero-padded fixed-width
     fields — BGI-style names, the reference's fixed-width flavor items —
@@ -46,9 +48,8 @@ def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
     run_len = end_pos - start_pos
     run_row = np.searchsorted(offsets[1:], start_pos, side="right")
     keep0 = run_len <= MAX_NUM_LEN
-    # gxz_tokenize semantics: the token counter advances on KEPT runs only,
-    # so the cap admits the first max_tokens runs per row that pass the base
-    # filter
+    # gxz_tokenize semantics: the token counter advances on KEPT runs only, so the
+    # cap admits the first max_tokens runs per row that pass the base filter
     kept_rank = np.cumsum(keep0) - keep0  # exclusive cumcount of kept runs
     row_base = np.zeros(start_pos.shape[0], np.int64)
     if start_pos.shape[0]:
@@ -95,10 +96,15 @@ def tokenize_col(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
                         np.ascontiguousarray(offsets, np.int64), max_tokens)
 
 
-def tokenizer_seg_col(prefix: str, col: Col, max_tokens: int = MAX_TOKENS):
+def tokenizer_seg_col(prefix: str, col: Col, single_stream: bool = False,
+                      max_tokens: int = MAX_TOKENS):
     """Segment a ragged string column into template dict + numeric streams.
     Returns dict of ctx_name -> VBCtx. Recon counterpart: tokenizer_recon_col.
-    (genozip_tpu's single-stream mode serves VCF only and is not ported.)
+
+    single_stream=True routes ALL numeric runs (uncapped, any count per row)
+    into one value stream in (row, position) order — for fields with many or
+    variable-count numbers per row (VCF INFO/sample matrices), where one
+    section beats hundreds of per-position sections.
     """
     n = len(col)
     data = col.data
@@ -118,8 +124,9 @@ def tokenizer_seg_col(prefix: str, col: Col, max_tokens: int = MAX_TOKENS):
         ctxs[prefix] = VBCtx(prefix, MODE_DICT, b250=inv, vb_words=uw, cat="b250")
         return ctxs
 
+    cap = (1 << 62) if single_stream else max_tokens
     tmpl_data, tmpl_lens, vals, new_tok, wid = tokenize_col(
-        data, col.offsets, max_tokens)
+        data, col.offsets, cap)
     tmpl_col = Col(tmpl_data, np.concatenate([[0], np.cumsum(tmpl_lens)]))
     uw, inv = dedup_col(tmpl_col)
     ctxs[prefix] = VBCtx(prefix, MODE_DICT, b250=inv, vb_words=uw, cat="b250")
@@ -133,6 +140,21 @@ def tokenizer_seg_col(prefix: str, col: Col, max_tokens: int = MAX_TOKENS):
     if (pad != 0).any():
         ctxs[f"{prefix}W"] = VBCtx(f"{prefix}W", MODE_NUM, local=pad,
                                    cat="int")
+    if single_stream:
+        # uniform per-row counts -> store column-major (the sample-matrix
+        # transpose, reference LT_UINT8_TR-style: per-column value
+        # distributions stay coherent for the entropy coder)
+        k = int(new_tok.max()) + 1
+        if n and vals.shape[0] == n * k and \
+                (new_tok == np.tile(np.arange(k, dtype=new_tok.dtype), n)).all():
+            ctxs[f"{prefix}S"] = VBCtx(
+                f"{prefix}S", MODE_NUM,
+                local=np.ascontiguousarray(vals.reshape(n, k).T).reshape(-1),
+                cat="int", param=2)
+        else:
+            ctxs[f"{prefix}S"] = VBCtx(f"{prefix}S", MODE_NUM, local=vals,
+                                       cat="int", param=0)
+        return ctxs
     ntok = int(new_tok.max()) + 1
     for t in range(ntok):
         v = vals[new_tok == t]
@@ -159,13 +181,27 @@ def tokenizer_recon_col(prefix: str, pctxs, n: int) -> Col:
         k = t.count(bytes([TOK_MARK]))
         if k:
             pieces = t.split(bytes([TOK_MARK]))   # k+1 constant chunks
-            cols_v = []
-            for i in range(k):
-                pc = pctxs.get(f"{prefix}{i}")
-                if pc is None or pc.local.shape[0] != n:
+            if f"{prefix}S" in pctxs:
+                pc = pctxs[f"{prefix}S"]
+                vals = pc.local.astype(np.int64)
+                if vals.shape[0] == n * k:
+                    if pc.param == 2:   # column-major (transposed)
+                        cols_v = [np.ascontiguousarray(vals[i * n:(i + 1) * n])
+                                  for i in range(k)]
+                    else:
+                        m = vals.reshape(n, k)
+                        cols_v = [np.ascontiguousarray(m[:, i])
+                                  for i in range(k)]
+                else:
                     cols_v = None
-                    break
-                cols_v.append(pc.nums())
+            else:
+                cols_v = []
+                for i in range(k):
+                    pc = pctxs.get(f"{prefix}{i}")
+                    if pc is None or pc.local.shape[0] != n:
+                        cols_v = None
+                        break
+                    cols_v.append(pc.nums())
             if cols_v is not None:
                 cols = [ragged.itoa(v) for v in cols_v]
                 seps = [pieces[i + 1] or None for i in range(k)]
@@ -183,28 +219,35 @@ def tokenizer_recon_col(prefix: str, pctxs, n: int) -> Col:
     if marks.shape[0] == 0:
         return tmpl
     mark_row = np.searchsorted(tmpl.offsets[1:], marks, side="right")
-    per_row = np.bincount(mark_row, minlength=n)
-    tok_of_mark = np.arange(marks.shape[0]) - np.concatenate(
-        [[0], np.cumsum(per_row)])[mark_row]
-    ntok = int(tok_of_mark.max()) + 1
-    # decode each numeric stream, then scatter values to marks
-    val_of_mark = np.zeros(marks.shape[0], dtype=np.int64)
-    for t in range(ntok):
-        name = f"{prefix}{t}"
-        pc = pctxs[name]
-        v = pc.nums()
-        m = tok_of_mark == t
-        if m.sum() != v.shape[0]:
-            raise ValueError(f"{name}: {m.sum()} marks vs {v.shape[0]} vals")
-        val_of_mark[m] = v
+    if f"{prefix}S" in pctxs:   # single-stream mode: marks in row-major order
+        pc = pctxs[f"{prefix}S"]
+        val_of_mark = pc.local.astype(np.int64)
+        if pc.param == 2:       # column-major (transposed) storage
+            k = val_of_mark.shape[0] // max(n, 1)
+            val_of_mark = np.ascontiguousarray(
+                val_of_mark.reshape(k, n).T).reshape(-1)
+        assert val_of_mark.shape[0] == marks.shape[0]
+    else:
+        per_row = np.bincount(mark_row, minlength=n)
+        tok_of_mark = np.arange(marks.shape[0]) - np.concatenate(
+            [[0], np.cumsum(per_row)])[mark_row]
+        ntok = int(tok_of_mark.max()) + 1
+        # decode each numeric stream, then scatter values to marks
+        val_of_mark = np.zeros(marks.shape[0], dtype=np.int64)
+        for t in range(ntok):
+            name = f"{prefix}{t}"
+            pc = pctxs[name]
+            v = pc.nums()
+            m = tok_of_mark == t
+            assert m.sum() == v.shape[0], f"{name}: {m.sum()} marks vs {v.shape[0]} vals"
+            val_of_mark[m] = v
     num_col = ragged.itoa(val_of_mark)
     wc = pctxs.get(f"{prefix}W")
     if wc is not None:
         # zero-pad widths (fixed-width fields): left-pad each rendered
         # number with '0' to canonical+pad digits (row-major mark order)
         pad = wc.nums()
-        if pad.shape[0] != marks.shape[0]:
-            raise ValueError(f"{prefix}W: pad count mismatch")
+        assert pad.shape[0] == marks.shape[0]
         if (pad != 0).any():
             nlp = num_col.lens + pad
             offp = np.concatenate([[0], np.cumsum(nlp)])

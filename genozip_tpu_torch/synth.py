@@ -1,4 +1,4 @@
-"""Synthetic inputs in the shape of bench configs cfg3 and cfg4.
+"""Synthetic inputs in the shape of bench configs cfg3, cfg4 and cfg5.
 
 cfg3 (`write_fastq`): single-end FASTQ of 150 bp reads sampled off a
 repeat-family genome, 0.3% substitution errors, half of them
@@ -11,14 +11,26 @@ cfg4 (`write_fasta` + `write_paired_fastq`): the genome as a FASTA for
 reverse-complemented at p + 150..350, 150 bp each, 0.3% errors, 4-bin
 quality, Illumina QNAMEs with /1 and /2.
 
+cfg5 (`write_bam`, `write_sam`): coordinate-sorted WGS-style alignments of
+150 bp reads off 32 Mbp contigs, in 2 Mbp windows of 60000 reads: ~8%
+multi-mappers (a primary with XA:Z plus a secondary of the same QNAME), ~4%
+split reads (a 75M75S primary with SA:Z plus a 75H75M supplementary whose
+SEQ/QUAL are the primary's slice), the rest proper pairs with NM/AS/XS (and
+XA:Z on ~10%); 4-bin quality. The BAM is BGZF at zlib level 6.
+
 A vectorized re-implementation of bench.py's generators (its `_genome`,
-`_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`), made from a
-numpy seed, for the port's tests and chip_smoke.py.
+`_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`, `gen_bam`), made
+from a numpy seed, for the port's tests and chip_smoke.py. The bytes differ
+from bench.py's; the shapes are its.
 """
+
+import os
 
 import numpy as np
 
 from .ops import pack as packops
+from .utils import ragged
+from .utils.ragged import Col
 
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -165,3 +177,230 @@ def write_paired_fastq(p1: str, p2: str, g: np.ndarray, nbytes: int,
             size += len(c1) + len(c2)
             i += 1
     return size
+
+
+# ---------------------------------------------------------------------------
+# cfg5: sorted alignments with secondary and supplementary records
+# ---------------------------------------------------------------------------
+
+_CFG5_GENOME = 32 << 20
+_CFG5_WINDOW = 2_000_000
+_RL = 150
+_HALF = _RL // 2
+# record kinds: multi-mapper primary / its secondary, split-read primary /
+# its supplementary, proper pair
+_MP, _MS, _SP, _SU, _PR = range(5)
+_CIGARS = (b"150M", b"75M75S", b"75H75M")
+_CIGAR_BIN = tuple(np.asarray(ops, "<u4").tobytes() for ops in (
+    [(150 << 4) | 0], [(75 << 4) | 0, (75 << 4) | 4],
+    [(75 << 4) | 5, (75 << 4) | 0]))
+_BAM_FIXED = np.dtype([
+    ("block_size", "<u4"), ("refid", "<i4"), ("pos", "<i4"),
+    ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+    ("n_cigar_op", "<u2"), ("flag", "<u2"), ("l_seq", "<u4"),
+    ("next_refid", "<i4"), ("next_pos", "<i4"), ("tlen", "<i4")])
+
+
+def _const(n: int, b: bytes) -> Col:
+    return Col.from_fixed(np.tile(np.frombuffer(b, np.uint8), (n, 1)))
+
+
+def _keep(col: Col, mask: np.ndarray) -> Col:
+    """`col` with the rows where `mask` is False emptied."""
+    return ragged.gather_ranges(col.data, col.offsets[:-1],
+                                np.where(mask, col.lens, 0))
+
+
+def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """UCSC binning (SAM spec 5.3), vectorized `translate.reg2bin`."""
+    end = end - 1
+    out = np.zeros(beg.shape[0], np.int64)
+    done = np.zeros(beg.shape[0], bool)
+    for shift, lvl in ((14, 15), (17, 12), (20, 9), (23, 6), (26, 3)):
+        m = ~done & ((beg >> shift) == (end >> shift))
+        out[m] = ((1 << lvl) - 1) // 7 + (beg[m] >> shift)
+        done |= m
+    return out
+
+
+def _cfg5_window(rng, g, chrom: bytes, refid: int, lo: int, hi: int,
+                 rid0: int, n: int = 60000):
+    """One window of cfg5 records as (SAM text lines, BAM records), both
+    as bytes, the same records in the same order."""
+    rl = _RL
+    G = g.shape[0]
+    poss = np.sort(rng.integers(lo, hi, n))
+    ne = rng.binomial(rl, 0.003, n)
+    quals = qual_rows(rng, n, rl)
+    seqs = _reads(rng, g, poss, rl)
+    kinds = rng.random(n)
+    p2 = rng.integers(0, G - rl, n)
+    xs_gap = rng.integers(5, 30, n)
+    multi, split = kinds < 0.08, (kinds >= 0.08) & (kinds < 0.12)
+    nsub = 1 + (multi | split)
+    j = np.repeat(np.arange(n), nsub)
+    sub = np.arange(j.shape[0]) - np.repeat(np.cumsum(nsub) - nsub, nsub)
+    kind = np.where(multi[j], _MP + sub, np.where(split[j], _SP + sub, _PR))
+    R = kind.shape[0]
+    p, ne_j, as_v = poss[j], ne[j], rl - 2 * ne[j]
+    pair_r2 = (j % 2) == 1
+    flag = np.choose(kind, [0, 256, 0, 2048, 0]) + \
+        (kind == _PR) * np.where(pair_r2, 147, 99)
+    pos0 = np.choose(kind, [p, p2[j], p, p + 400, p])
+    mapq = np.where(kind == _MS, 0, 60)
+    cig = np.choose(kind, [0, 0, 1, 2, 0])
+    is_pr = kind == _PR
+    pnext0 = np.where(is_pr, p + 199, -1)
+    tlen = np.where(is_pr, np.where(pair_r2, -350, 350), 0)
+    nm = np.where(kind == _MS, ne_j + 1, ne_j)
+    has_seq = kind != _MS
+    seq_off = j * rl + np.where(kind == _SU, _HALF, 0)
+    seq_len = np.where(kind == _SU, rl - _HALF, np.where(has_seq, rl, 0))
+    seq = ragged.gather_ranges(seqs.reshape(-1), seq_off, seq_len)
+    qual = ragged.gather_ranges(quals.reshape(-1), seq_off, seq_len)
+
+    # aux values: NM always; AS on multi-mapper records and pairs; XS on
+    # pairs; XA on multi-mapper primaries and ~10% of pairs; SA on split
+    # reads
+    has_as = np.isin(kind, (_MP, _MS, _PR))
+    as_val = np.where(kind == _MS, as_v - 5, as_v)
+    xs_val = as_v - xs_gap[j]
+    has_xa = (kind == _MP) | (is_pr & (kinds[j] > 0.9))
+    chrom_c = _const(R, chrom + b",")
+    xa = ragged.interleave(
+        [chrom_c, Col.from_fixed(np.where(kind == _MP, ord("+"), ord("-"))
+                                 .astype(np.uint8).reshape(-1, 1)),
+         ragged.itoa(p2[j] + 1), _const(R, b",150M,"), ragged.itoa(ne_j + 1)],
+        sep_after=[None, None, None, None, b";"])
+    has_sa = (kind == _SP) | (kind == _SU)
+    sa = ragged.interleave(
+        [chrom_c, ragged.itoa(np.where(kind == _SP, p + 401, p + 1)),
+         ragged.take(Col.from_list([b",+,75H75M,60,", b",+,75M75S,60,"]),
+                     (kind == _SU).astype(np.int64)),
+         ragged.itoa(ne_j)], sep_after=[None, None, None, b";"])
+
+    qname = ragged.interleave([_const(R, b"b"), ragged.itoa(rid0 + j)])
+
+    # SAM text
+    def nz(c, m):
+        """`c`, with '*' in the rows where `m` is False."""
+        return ragged.merge_rows(R, [
+            (np.nonzero(m)[0], ragged.take(c, np.nonzero(m)[0])),
+            (np.nonzero(~m)[0], _const(int((~m).sum()), b"*"))])
+
+    aux_t = ragged.interleave([
+        _const(R, b"\tNM:i:"), ragged.itoa(nm),
+        _keep(_const(R, b"\tAS:i:"), has_as), _keep(ragged.itoa(as_val), has_as),
+        _keep(_const(R, b"\tXS:i:"), is_pr), _keep(ragged.itoa(xs_val), is_pr),
+        _keep(_const(R, b"\tXA:Z:"), has_xa), _keep(xa, has_xa),
+        _keep(_const(R, b"\tSA:Z:"), has_sa), _keep(sa, has_sa)])
+    text = ragged.interleave(
+        [qname, ragged.itoa(flag), _const(R, chrom), ragged.itoa(pos0 + 1),
+         ragged.itoa(mapq), ragged.take(Col.from_list(list(_CIGARS)), cig),
+         ragged.take(Col.from_list([b"*", b"="]), is_pr.astype(np.int64)),
+         ragged.itoa(pnext0 + 1), ragged.itoa(tlen), nz(seq, has_seq),
+         nz(qual, has_seq), aux_t],
+        sep_after=[b"\t"] * 10 + [None, b"\n"])
+
+    # BAM records (SAMv1 §4.2): the same fields, binary
+    def tagged(tag: bytes, vals):
+        m = np.zeros((R, 7), np.uint8)
+        m[:, :3] = np.frombuffer(tag, np.uint8)
+        m[:, 3:] = np.asarray(vals, "<i4").view(np.uint8).reshape(R, 4)
+        return Col.from_fixed(m)
+
+    aux_b = ragged.interleave([
+        tagged(b"NMi", nm), _keep(tagged(b"ASi", as_val), has_as),
+        _keep(tagged(b"XSi", xs_val), is_pr),
+        _keep(_const(R, b"XAZ"), has_xa), _keep(xa, has_xa),
+        _keep(_const(R, b"\x00"), has_xa),
+        _keep(_const(R, b"SAZ"), has_sa), _keep(sa, has_sa),
+        _keep(_const(R, b"\x00"), has_sa)])
+    from .datatypes.bam import BamDT
+    seq_nib = BamDT._renibble(seq)
+    qual_b = Col(qual.data - np.uint8(33), qual.offsets)
+    cig_b = ragged.take(Col.from_list(list(_CIGAR_BIN)), cig)
+    fixed = np.zeros(R, _BAM_FIXED)
+    fixed["refid"] = refid
+    fixed["pos"] = pos0
+    fixed["l_read_name"] = qname.lens + 1
+    fixed["mapq"] = mapq
+    fixed["bin"] = _reg2bin(pos0, pos0 + np.where(cig == 0, rl, _HALF))
+    fixed["n_cigar_op"] = np.where(cig == 0, 1, 2)
+    fixed["flag"] = flag
+    fixed["l_seq"] = seq_len
+    fixed["next_refid"] = np.where(is_pr, refid, -1)
+    fixed["next_pos"] = pnext0
+    fixed["tlen"] = tlen
+    fixed["block_size"] = 32 + qname.lens + 1 + cig_b.lens + seq_nib.lens + \
+        qual_b.lens + aux_b.lens
+    recs = ragged.interleave(
+        [Col.from_fixed(fixed.view(np.uint8).reshape(R, -1)), qname, cig_b,
+         seq_nib, qual_b, aux_b], sep_after=[None, b"\x00"] + [None] * 4)
+    return text.data.tobytes(), recs.data.tobytes()
+
+
+def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int):
+    """(SAM header, per window (SAM text, BAM records)), with bench.py's
+    contig count for a file of `nbytes`. A window holds `window_reads`
+    reads over window_reads / 60000 * 2 Mbp, bench.py's coverage."""
+    rng = np.random.default_rng(seed)
+    G = g.shape[0]
+    n_chrom = max(1, nbytes // (G * 5 // 4) + 1)
+    hdr = b"@HD\tVN:1.6\tSO:coordinate\n" + b"".join(
+        b"@SQ\tSN:chr%d\tLN:%d\n" % (c + 1, G) for c in range(n_chrom))
+
+    span = max(_CFG5_WINDOW * window_reads // 60000, 4 * _RL)
+
+    def windows():
+        rid = 0
+        for c in range(n_chrom):
+            pos = 1
+            while pos < G - 2 * _RL:
+                hi = min(pos + span, G - _RL)
+                yield _cfg5_window(rng, g, b"chr%d" % (c + 1), c, pos, hi,
+                                   rid, window_reads)
+                rid += window_reads
+                pos = hi
+    return hdr, windows()
+
+
+def write_bam(path: str, nbytes: int, seed: int = 2024,
+              genome_len: int = _CFG5_GENOME,
+              window_reads: int = 60000) -> int:
+    """Write a cfg5-shaped BAM of at least `nbytes` on disk (fewer if the
+    contigs run out), BGZF at zlib level 6 through the port's BgzfWriter.
+    Returns the bytes on disk."""
+    from .translate import sam_header_to_bam
+    from .utils.bgzf import BgzfWriter
+    g = genome(np.random.default_rng(seed + 1), genome_len)
+    hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
+    f = open(path, "wb")
+    w = BgzfWriter(f, 6)
+    w.write(sam_header_to_bam(hdr)[0])
+    for _text, recs in wins:
+        if f.tell() >= nbytes:
+            break
+        w.write(recs)
+    w.close()
+    return os.path.getsize(path)
+
+
+def write_sam(path: str, nbytes: int, seed: int = 2024,
+              genome_len: int = _CFG5_GENOME,
+              window_reads: int = 60000) -> int:
+    """The SAM text of `write_bam`'s first records (same seed and genome
+    length, same records): the header and whole lines up to the first line
+    end at or past `nbytes`. Returns the bytes written."""
+    g = genome(np.random.default_rng(seed + 1), genome_len)
+    hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
+    with open(path, "wb") as f:
+        f.write(hdr)
+        for text, _recs in wins:
+            room = nbytes - f.tell()
+            if room <= 0:
+                break
+            if len(text) > room:
+                text = text[:text.index(b"\n", room - 1) + 1]
+            f.write(text)
+        return f.tell()

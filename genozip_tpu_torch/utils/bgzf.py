@@ -1,13 +1,24 @@
-"""Block-aware readers of gz-family inputs: BGZF and the multi-member gz
-dialects, recording per-block isizes for byte-exact re-emission (reference
-src/mgzip.c).
+"""Block-aware readers of gz-family inputs (BGZF and the multi-member gz
+dialects, recording per-block isizes for byte-exact re-emission) and the
+BGZF / multi-member gz writers (reference src/mgzip.c).
 
-genozip_tpu_torch's own copy of the readers of genozip_tpu/utils/bgzf.py,
-on their zlib path only: the deflate level is discovered among zlib's
-levels, as the JAX package does where its C++ host runtime does not load.
+genozip_tpu_torch's own copy of genozip_tpu/utils/bgzf.py on its zlib path
+only: the deflate level is discovered among zlib's levels and every block
+is deflated by zlib, as the JAX package does where its C++ host runtime
+(libdeflate) does not load. An input only libdeflate re-creates is recorded
+`exact: False` and re-emitted as standard BGZF. Blocks are deflated on a
+thread pool (zlib releases the GIL) and written in order.
 """
 
+import os
+import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
+
+BLOCK = 65280  # uncompressed payload per BGZF block (htslib convention)
+
+EOF_BLOCK = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
 
 def is_bgzf(head: bytes) -> bool:
@@ -217,3 +228,149 @@ class MgzipBlockReader:
 
     def close(self):
         self.f.close()
+
+
+def _deflate(payload: bytes, level: int) -> bytes:
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    return co.compress(payload) + co.flush()
+
+
+def _map_blocks(fn, payloads):
+    """`fn` of each block payload, in order, on a thread pool."""
+    if len(payloads) < 2:
+        return [fn(p) for p in payloads]
+    with ThreadPoolExecutor(max_workers=min(len(payloads),
+                                            os.cpu_count() or 2)) as pool:
+        return list(pool.map(fn, payloads))
+
+
+def _bgzf_block(payload: bytes, comp: bytes, header: bytes = None) -> bytes:
+    """One BGZF member: `header` (the 12 fixed bytes, magic..XLEN; htslib's
+    when None), the BC subfield with BSIZE, the deflate bytes, CRC32 and
+    ISIZE."""
+    if header is None:
+        header = struct.pack("<BBBBIBBH", 0x1F, 0x8B, 8, 4, 0, 0, 0xFF, 6)
+    bsize = len(comp) + len(header) + 6 + 8
+    return b"".join((header, struct.pack("<BBHH", 0x42, 0x43, 2, bsize - 1),
+                     comp, struct.pack("<II", zlib.crc32(payload) & 0xFFFFFFFF,
+                                       len(payload) & 0xFFFFFFFF)))
+
+
+class BgzfWriter:
+    """Standard BGZF output: 65280-byte blocks, htslib's header, an EOF
+    marker (the non-exact re-compression of PIZ output)."""
+
+    def __init__(self, fileobj, level: int = 6):
+        self.f = fileobj
+        self.level = level
+        self.buf = bytearray()
+
+    def _emit(self, payloads):
+        comps = _map_blocks(lambda p: _deflate(p, self.level), payloads)
+        for p, c in zip(payloads, comps):
+            self.f.write(_bgzf_block(p, c))
+
+    def write(self, data: bytes):
+        self.buf += data
+        nfull = len(self.buf) // BLOCK
+        if nfull:
+            take = nfull * BLOCK
+            mv = bytes(self.buf[:take])
+            self._emit([mv[i:i + BLOCK] for i in range(0, take, BLOCK)])
+            del self.buf[:take]
+
+    def close(self):
+        if self.buf:
+            self._emit([bytes(self.buf)])
+            self.buf.clear()
+        self.f.write(EOF_BLOCK)
+        self.f.close()
+
+
+def open_bgzf(path: str, level: int = 6) -> BgzfWriter:
+    return BgzfWriter(open(path, "wb"), level)
+
+
+class _ExactWriter:
+    """Byte-exact re-emission from recorded isizes + level + header: each
+    block's plaintext is cut at its recorded isize and deflated again."""
+
+    def __init__(self, fileobj, isizes, level: int, header: bytes):
+        self.f = fileobj
+        self.isizes = list(isizes)
+        self.level = level
+        self.header = header
+        self.buf = bytearray()
+        self.block_i = 0
+
+    def _member(self, payload: bytes, comp: bytes) -> bytes:
+        raise NotImplementedError
+
+    def _deflate_block(self, payload: bytes) -> bytes:
+        return _deflate(payload, self.level)
+
+    def _emit(self, payloads):
+        for p, c in zip(payloads, _map_blocks(self._deflate_block, payloads)):
+            self.f.write(self._member(p, c))
+
+    def write(self, data: bytes):
+        self.buf += data
+        payloads = []
+        at = 0
+        while self.block_i < len(self.isizes):
+            need = self.isizes[self.block_i]
+            if need == 0 or len(self.buf) - at < need:
+                break  # zero blocks are handled at close
+            payloads.append(bytes(self.buf[at:at + need]))
+            at += need
+            self.block_i += 1
+        if payloads:
+            del self.buf[:at]
+            self._emit(payloads)
+
+    def close(self):
+        payloads = []
+        while self.block_i < len(self.isizes):
+            need = self.isizes[self.block_i]
+            if len(self.buf) < need:
+                raise ValueError("gz-exact: short plaintext")
+            payloads.append(bytes(self.buf[:need]))
+            del self.buf[:need]
+            self.block_i += 1
+        if self.buf:
+            raise ValueError("gz-exact: plaintext longer than recorded")
+        self._emit(payloads)
+        self.f.close()
+
+
+class ExactBgzfWriter(_ExactWriter):
+    """Re-emit a BGZF file byte-exactly (only when discover_level matched
+    a zlib level)."""
+
+    def __init__(self, fileobj, isizes, level: int, header: bytes,
+                 lib: str = "zlib"):
+        if lib != "zlib":
+            raise NotImplementedError(
+                f"BGZF-exact output written by {lib}: not available in "
+                "genozip_tpu_torch (zlib only)")
+        super().__init__(fileobj, isizes, level, header)
+
+    def _deflate_block(self, payload: bytes) -> bytes:
+        if not payload:
+            # empty block (EOF marker): canonical 2-byte final block,
+            # constant across writer libraries (htslib bgzf.c)
+            return b"\x03\x00"
+        return _deflate(payload, self.level)
+
+    def _member(self, payload: bytes, comp: bytes) -> bytes:
+        return _bgzf_block(payload, comp, self.header)
+
+
+class MgzipExactWriter(_ExactWriter):
+    """Byte-exact re-emission of a multi-member gz file (any non-BGZF
+    dialect) from recorded isizes + uniform header + discovered level."""
+
+    def _member(self, payload: bytes, comp: bytes) -> bytes:
+        return b"".join((self.header, comp, struct.pack(
+            "<II", zlib.crc32(payload) & 0xFFFFFFFF,
+            len(payload) & 0xFFFFFFFF)))

@@ -86,6 +86,46 @@ def take(col: Col, idx: np.ndarray) -> Col:
     return gather_ranges(col.data, starts, lens)
 
 
+def rows_equal(a: Col, b: Col) -> np.ndarray:
+    """Per-row byte equality of two columns. Rows with differing lens are
+    unequal; the flat fast path below requires aligned data, so mixed-lens
+    inputs recurse on the equal-lens subset."""
+    n = len(a)
+    eq = a.lens == b.lens
+    if not eq.all():
+        idx = np.nonzero(eq)[0]
+        out = eq.copy()
+        if idx.shape[0]:
+            out[idx] = rows_equal(take(a, idx), take(b, idx))
+        return out
+    mism = np.nonzero(a.data[:b.data.shape[0]] != b.data[:a.data.shape[0]])[0]
+    if mism.shape[0]:
+        rowm = np.searchsorted(a.offsets[1:], mism, side="right")
+        eq = eq.copy()
+        eq[np.minimum(rowm, n - 1)] = False
+    return eq
+
+
+def cols_equal_rows(a: Col, b: Col) -> np.ndarray:
+    """Per-row equality of two same-length columns (genozip_tpu keeps it in
+    deep.py, which the port does not have yet)."""
+    n = len(a)
+    eq_len = a.lens == b.lens
+    out = np.zeros(n, dtype=bool)
+    idx = np.nonzero(eq_len)[0]
+    if idx.shape[0] == 0:
+        return out
+    sa = take(a, idx)
+    sb = take(b, idx)
+    neq = sa.data != sb.data
+    # rows with zero mismatching bytes
+    row_of = np.searchsorted(sa.offsets[1:], np.nonzero(neq)[0], side="right")
+    bad = np.zeros(idx.shape[0], dtype=bool)
+    bad[row_of] = True
+    out[idx[~bad]] = True
+    return out
+
+
 def interleave(cols, sep_after=None) -> Col:
     """Row-wise concatenation of k columns (all length n), each row of column j
     optionally followed by separator bytes sep_after[j] (bytes or None).
@@ -122,6 +162,66 @@ def interleave(cols, sep_after=None) -> Col:
         else:
             intra = intra + clens
     return Col(out, offsets)
+
+
+def split_first_fields(line_col: Col, sep: int, k: int):
+    """Split each row into its first k sep-separated fields plus the raw
+    remainder (remainder INCLUDES its leading separator, or is empty for rows
+    with exactly k fields). Rows with fewer than k fields are reported in
+    `bad_rows` and excluded from the returned columns.
+
+    Returns (field_cols: list[k Col], rest: Col, good_rows: int64[],
+    bad_rows: int64[])."""
+    data = line_col.data
+    n = len(line_col)
+    sep_pos = np.nonzero(data == sep)[0]
+    row_of = np.searchsorted(line_col.offsets[1:], sep_pos, side="right")
+    counts = np.bincount(row_of, minlength=n)
+    good = counts >= k - 1
+    good_rows = np.nonzero(good)[0]
+    bad_rows = np.nonzero(~good)[0]
+    ng = good_rows.shape[0]
+    if ng == 0:
+        return [Col.from_list([]) for _ in range(k)], Col.from_list([]), \
+            good_rows, bad_rows
+    # first k-1 separator positions of each good row
+    first_sep_of_row = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    sp = np.empty((ng, k - 1), dtype=np.int64)
+    for j in range(k - 1):
+        sp[:, j] = sep_pos[first_sep_of_row[good_rows] + j]
+    bounds = np.empty((ng, k + 1), dtype=np.int64)
+    bounds[:, 0] = line_col.offsets[:-1][good_rows]
+    bounds[:, 1:k] = sp + 1
+    row_ends = line_col.offsets[1:][good_rows]
+    # field k ends at the k-th separator if the row has >= k fields' seps
+    has_more = counts[good_rows] >= k
+    kth_sep = np.where(has_more,
+                       sep_pos[np.minimum(first_sep_of_row[good_rows] + k - 1,
+                                          sep_pos.shape[0] - 1)]
+                       if sep_pos.shape[0] else 0,
+                       row_ends)
+    bounds[:, k] = np.where(has_more, kth_sep, row_ends)
+    cols = []
+    for f in range(k):
+        starts = bounds[:, f]
+        ends = bounds[:, f + 1] if f == k - 1 else bounds[:, f + 1] - 1
+        cols.append(gather_ranges(data, starts, ends - starts))
+    rest = gather_ranges(data, bounds[:, k], row_ends - bounds[:, k])
+    return cols, rest, good_rows, bad_rows
+
+
+def count_sep_per_row(line_col: Col, sep: int) -> np.ndarray:
+    """Occurrences of byte `sep` in each row: one reduceat over the byte
+    mask."""
+    n = len(line_col)
+    if n == 0:
+        return np.zeros(0, np.int64)
+    off = line_col.offsets
+    m = (line_col.data[:off[-1]] == sep).view(np.int8)
+    a = np.concatenate([m, np.zeros(1, np.int8)])
+    res = np.add.reduceat(a, off[:-1], dtype=np.int64)
+    res[off[1:] == off[:-1]] = 0   # reduceat returns a[i] for empty rows
+    return res
 
 
 def to_matrix(col: Col, fill: int = 0):
@@ -174,6 +274,43 @@ def merge_rows(n: int, parts) -> Col:
         pos = arange(total) - np.repeat(c.offsets[:-1], clens)
         out[np.repeat(offsets[:-1][idx], clens) + pos] = c.data
     return Col(out, offsets)
+
+
+def atoi(col: Col, dtype=np.int64):
+    """Parse every row as a decimal integer (optional leading '-').
+    Returns (values, ok_mask). Rows failing strict parse get ok=False."""
+    n = len(col)
+    lens = col.lens
+    if n == 0:
+        return np.zeros(0, dtype), np.zeros(0, bool)
+    safe_starts = np.minimum(col.offsets[:-1], max(col.data.shape[0] - 1, 0))
+    first = np.where(lens > 0, col.data[safe_starts]
+                     if col.data.shape[0] else 0, 0)
+    neg_mask = (first == ord("-")) & (lens > 1)
+    starts = col.offsets[:-1] + neg_mask
+    dlens = lens - neg_mask
+    maxw = int(dlens.max()) if n else 0
+    if maxw == 0 or maxw > 19:
+        ok_width = (dlens > 0) & (dlens <= 19)
+    else:
+        ok_width = dlens > 0
+    maxw = min(max(maxw, 1), 19)
+    # right-aligned digit matrix
+    idx = starts[:, None] + (np.arange(maxw)[None, :] - (maxw - dlens)[:, None])
+    valid = np.arange(maxw)[None, :] >= (maxw - dlens)[:, None]
+    idx = np.clip(idx, 0, max(col.data.shape[0] - 1, 0))
+    digs = np.where(valid, col.data[idx] if col.data.shape[0] else 0, ord("0"))
+    is_digit = ((digs >= ord("0")) & (digs <= ord("9"))) | ~valid
+    ok = ok_width & is_digit.all(axis=1)
+    vals = np.zeros(n, dtype=np.int64)
+    for j in range(maxw):
+        vals = vals * 10 + (digs[:, j].astype(np.int64) - ord("0"))
+    vals = np.where(neg_mask, -vals, vals)
+    # leading zeros make the round trip inexact ("007"): flag them not-ok
+    first_dig = digs[np.arange(n), np.clip(maxw - dlens, 0, maxw - 1)]
+    has_lead0 = (dlens > 1) & (first_dig == ord("0"))
+    ok &= ~has_lead0
+    return vals.astype(dtype), ok
 
 
 def itoa(vals: np.ndarray) -> Col:

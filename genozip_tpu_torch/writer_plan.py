@@ -4,9 +4,11 @@ Counterpart of genozip_tpu/writer_plan.py (reference src/writer.c:866
 writer_create_plan, :1203 writer_main_loop). A plan is a list of typed items
 built from the archive (one component, or a paired archive's two components
 interleaved, the reference's PLAN_INTERLEAVE) and edited by the positional
-filters (--tail/--downsample); per-record predicates (--grep) and
+filters (--tail/--downsample/--one-vb); per-record predicates (--grep) and
 projections (--seq-only/--qual-only) are applied by the executor, to
-interleaved records as to any others.
+interleaved records as to any others. A MAIN VB of a gencomp archive that a
+filter skips stays in the plan as DRAIN_VB, which consumes its share of the
+deported PRIM/DEPN lines, so the VBs after it get their own lines back.
 """
 
 from dataclasses import dataclass
@@ -20,6 +22,7 @@ from .utils import ragged
 TXTHEADER = "txthdr"      # emit the txt header
 VB_RANGE = "vb"           # records start.. step `step` of one VB
 INTERLEAVE = "ilv"        # alternate records of (vb, comp 0) and (vb, comp 1)
+DRAIN_VB = "drain"        # consume a skipped VB's gencomp queue share
 
 
 @dataclass
@@ -78,9 +81,16 @@ def edit_downsample(plan, k: int, counts):
     return plan
 
 
+def edit_one_vb(plan, vb_i: int):
+    """--one-vb: VB `vb_i` only; the VBs before it drain."""
+    return [it if it.vb_i == vb_i or it.kind == TXTHEADER else
+            PlanItem(DRAIN_VB, vb_i=it.vb_i, comp_i=it.comp_i)
+            for it in plan if it.vb_i <= vb_i]
+
+
 def edit_tail(plan, k: int, counts):
-    """--tail=k: keep only the last k records; VBs wholly before them are
-    dropped from the plan, never reconstructed."""
+    """--tail=k: keep only the last k records; VBs wholly before them
+    drain, never reconstructed."""
     total = sum(c for it, c in zip(plan, counts) if it.kind == VB_RANGE)
     first = max(total - k, 0)      # 0-based ordinal of the first kept record
     out = []
@@ -92,6 +102,7 @@ def edit_tail(plan, k: int, counts):
         lo = seen
         seen += cnt
         if seen <= first:
+            out.append(PlanItem(DRAIN_VB, vb_i=it.vb_i, comp_i=it.comp_i))
             continue
         out.append(PlanItem(VB_RANGE, vb_i=it.vb_i, comp_i=it.comp_i,
                             start=max(first - lo, 0), step=it.step,
@@ -101,8 +112,9 @@ def edit_tail(plan, k: int, counts):
 
 def vb_record_counts(pr, plan):
     """Record count per plan item, from the VB headers (0 for non-VB
-    items)."""
+    items); a gencomp MAIN VB adds its deported lines (src/gencomp_piz.c)."""
     counts = []
+    has_gc = pr.ensure_gencomp()
     for it in plan:
         if it.kind != VB_RANGE:
             counts.append(0)
@@ -112,7 +124,10 @@ def vb_record_counts(pr, plan):
         if payload is None and it.comp_i == 0:
             payload, _ = pr.zr.read_one(fmt.SEC_VB_HEADER, vb_i=it.vb_i)
         # vb_hdr["n"] counts records (a FASTQ record is the 4-line read)
-        counts.append(fmt.vbhdr_parse(payload)["n"])
+        n = fmt.vbhdr_parse(payload)["n"]
+        if has_gc and it.comp_i == 0:
+            n += sum(pr.gencomp_counts(it.vb_i))
+        counts.append(n)
     return counts
 
 
@@ -148,6 +163,10 @@ def execute_plan(pr, plan, out, lines_per_rec: int = 1, predicate=None,
             hdr = pr.txt_header(it.comp_i)
             if hdr and not no_header:
                 out.write(hdr)
+            continue
+        if it.kind == DRAIN_VB:
+            if pr.ensure_gencomp():
+                pr.drain_vb_gencomp(it.vb_i)
             continue
         if it.kind == INTERLEAVE:
             buf, starts, ends = _interleaved(pr, it.vb_i, lines_per_rec)

@@ -1,4 +1,5 @@
-"""ZIP pipeline: compress a FASTQ file, or a pair of them, into a GXZ archive.
+"""ZIP pipeline: compress a FASTQ, SAM or BAM file, or a pair of FASTQ files,
+into a GXZ archive.
 
 Counterpart of genozip_tpu/zip_pipeline.py `zip_file` and `zip_pair`:
 per-VB seg on a thread pool, deterministic in-order dict merge, per-context
@@ -9,6 +10,15 @@ area (dicts, counts, stats, a stored reference, file header). With
 whole-section RANS0 and RANS1 payloads of the device size go to the card in
 one launch per order. The archive bytes equal genozip_tpu's with its device
 path off.
+
+SAM/BAM without a reference build their genome from the alignments
+(REF_INTERNAL, src/reference.c): VBs seg in order on one worker, since each
+VB populates what the next diffs against, and the genome is stored after
+the last VB. Primaries with dependents and the secondary/supplementary
+alignments deport to the PRIM and DEPN components (src/gencomp_zip.c),
+written after the MAIN VBs; DEPN compresses against the SAG store built
+from PRIM (src/sam_sag_ingest.c). A BGZF input's block sizes are stored
+(SEC_GZ_ISIZES) so that unzip can re-emit it byte for byte.
 
 `zip_pair` co-compresses R1/R2 FASTQ (reference src/fastq.c:224-245): R2 VBs
 are built 1:1 with R1 VBs by read count, byte-identical R2 sections are
@@ -29,7 +39,7 @@ import numpy as np
 
 from . import codecs
 from .codecs import assign as codec_assign
-from .contexts import ZCtxGlobal, narrow_int
+from .contexts import MODE_NUM, VBCtx, ZCtxGlobal, narrow_int
 from .datatypes import detect, get
 from .format import sections as fmt
 from .ops import pack as packops
@@ -65,6 +75,7 @@ class ZipJob:
         self.zw = fmt.ZWriter(self.out)
         self.gctxs: dict[str, ZCtxGlobal] = {}
         self.stats = ZipStats()
+        self.ra_index = {}
 
     def precommit_codecs(self, res):
         """Segconf codec pre-commitment (reference segconf.c:459 +
@@ -130,6 +141,17 @@ class ZipJob:
         """Dict merge (VB order = determinism) + section planning."""
         out_payloads = {} if collect else None
         ctx_meta = {}
+        # random-access index (reference src/random_access.c)
+        cctx = res.ctxs.get("CHROM") or res.ctxs.get("RNAME")
+        pctx = res.ctxs.get("POS")
+        if cctx is not None and pctx is not None and \
+                cctx.b250 is not None and pctx.local is not None:
+            pv = pctx.local
+            if pctx.param == 1:
+                pv = np.cumsum(pv)
+            ents = _ra_entries(cctx.vb_words, cctx.b250, pv)
+            if ents:
+                self.ra_index[f"{comp_i}:{vb_i}"] = ents
         # (sec_type, name, payload, codec, ltype, flags, units, blob|None)
         pending = []
         for name, c in res.ctxs.items():
@@ -237,11 +259,31 @@ class ZipJob:
                                  dict_id=name, ltype=fmt.LT_U64)
         zw.write_section(fmt.SEC_STATS, fmt.json_payload(self.stats.per_ctx),
                          codec=codecs.ZLIB)
+        if self.ra_index:
+            zw.write_section(fmt.SEC_RANDOM_ACCESS,
+                             fmt.json_payload(self.ra_index), codec=codecs.ZLIB)
         zw.write_section(fmt.SEC_FILE_HEADER, fmt.json_payload(file_hdr),
                          codec=codecs.ZLIB)
         zw.finalize()
         self.out.close()
         self.stats.z_len = zw.offset
+
+
+def _ra_entries(chrom_words, b250, pos_vals):
+    """Per-VB random-access entries [(chrom, min_pos, max_pos)] from a chrom
+    dict column (VB-local words), per-line word indices and per-line
+    positions (genozip_tpu/regions.py ra_entries)."""
+    out = []
+    if b250 is None or pos_vals is None or b250.shape[0] == 0:
+        return out
+    npos = min(b250.shape[0], pos_vals.shape[0])
+    b = b250[:npos]
+    p = pos_vals[:npos]
+    for w in np.unique(b):
+        m = b == w
+        name = chrom_words.row(int(w)).decode("utf-8", "replace")
+        out.append([name, int(p[m].min()), int(p[m].max())])
+    return out
 
 
 def _open_component(in_path, reference=None, dt_name=None, ref=None):
@@ -273,14 +315,14 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
              show_stats: bool = False, threads: int | None = None,
              reference: str | None = None, store_ref: bool = False,
              optimize: bool = False):
-    """Compress one FASTQ file, against `reference` (a .ref.gxz) if given;
-    `store_ref` also stores the genome ranges used (--REFERENCE). The rANS
-    device is whatever `codecs.enable_device_rans` set (host coders only if
-    nothing)."""
+    """Compress one FASTQ, SAM or BAM file, against `reference` (a .ref.gxz)
+    if given; `store_ref` also stores the genome ranges used (--REFERENCE).
+    The rANS device is whatever `codecs.enable_device_rans` set (host coders
+    only if nothing)."""
     reader, dt, dt_name = _open_component(in_path, reference)
     try:
         dt.optimize_enabled = optimize
-        if store_ref and dt.ref is not None:
+        if store_ref and getattr(dt, "ref", None) is not None:
             dt.ref.start_tracking()
         if vb_size is None:
             vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
@@ -306,15 +348,22 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
         codec = codec_assign.assign_best(txt_header, "text")
         job.zw.write_section(fmt.SEC_TXT_HEADER, txt_header, codec=codec, comp_i=0)
         job.stats.txt_len += len(txt_header)
+    iref = getattr(dt, "ref", None)
+    if not getattr(iref, "internal", False):
+        iref = None
 
     # segconf calibration seg (reference segconf.c:459): seg a ~1MB sample
-    # to commit the per-file lazy seg choices (QUAL demux class) and
-    # pre-commit every sampled context's codec
+    # to commit the per-file lazy seg choices (QUAL demux class, aux
+    # layouts) and pre-commit every sampled context's codec. Under
+    # REF_INTERNAL the denovo genome must not be populated out of VB order,
+    # so calibration runs with it detached (SEQ goes verbatim).
     cal = reader.peek(1 << 20)
     if cal:
         cdata = np.frombuffer(cal, np.uint8)
         cut = dt.vb_boundary(cdata, False)
         if 0 < cut:
+            if iref is not None:
+                dt.ref = None
             try:
                 with profiler.timer("zip:segconf-cal"):
                     cres = dt.seg_vb(cdata[:cut].copy())
@@ -323,6 +372,9 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
                 raise   # ...but a failing card must not go unnoticed
             except Exception:
                 pass    # calibration must never break the real path
+            finally:
+                if iref is not None:
+                    dt.ref = iref
 
     # from here on seg runs concurrently: per-file trial-once choices are
     # final, so bytes match across thread counts
@@ -331,8 +383,10 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
 
     # up to `workers` VBs seg concurrently while the main thread merges,
     # codes and writes completed VBs strictly in VB order (dict merge order
-    # = determinism)
-    workers = threads or os.cpu_count() or 2
+    # = determinism). REF_INTERNAL: VB n's seg populates the genome VB n+1
+    # diffs against, and PIZ replays that order, so seg stays sequential.
+    workers = 1 if iref is not None else (threads or os.cpu_count() or 2)
+    gencomp = _Gencomp(dt, dt_name, in_path, vb_size)
     vb_i = 0
     with ThreadPoolExecutor(max_workers=workers) as pool:
         def seg_one(data):
@@ -346,17 +400,21 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
 
         def drain():
             nonlocal vb_i
-            pdata, pfut = inflight.popleft()
+            pdata, pfut, gcpos = inflight.popleft()
             vb_i += 1
             with profiler.timer("zip:seg-wait"):
                 pres, pre_locals = pfut.result()
+            gencomp.add_positions(pres, gcpos)
             with profiler.timer("zip:merge+write"):
                 job.write_vb(pres, pdata, vb_i, pre_locals=pre_locals)
             prog.update(int(pdata.shape[0]))
 
         for data in reader.vblocks(dt, vb_size):
+            # the digest covers the original stream, before deportation
             file_adler = zlib.adler32(data, file_adler)
-            inflight.append((data, pool.submit(seg_one, data)))
+            with profiler.timer("zip:gencomp-split"):
+                data, gcpos = gencomp.split(data)
+            inflight.append((data, pool.submit(seg_one, data), gcpos))
             # VB 1 segs alone: its first-sight codec commits are visible to
             # every later VB
             if vb_i == 0 or len(inflight) > workers:
@@ -364,6 +422,8 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
         while inflight:
             drain()
     prog.finish()
+    with profiler.timer("zip:gencomp-write"):
+        gencomp_hdr = gencomp.write_components(job, vb_size)
 
     mgzip = None
     if isinstance(reader.f, (BgzfBlockReader, MgzipBlockReader)):
@@ -373,7 +433,9 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
             job.zw.write_section(fmt.SEC_GZ_ISIZES, isz, codec=codecs.RANS0
                                  if len(isz) >= 64 else codecs.NONE)
 
-    ref_stored = store_ref and dt.ref is not None and \
+    ref_internal = reference is None and iref is not None and \
+        _write_internal_ref(job, iref, dt._POP_BLK)
+    ref_stored = store_ref and reference is not None and \
         _write_stored_ref(job, dt.ref)
     file_hdr = {
         "version": 2, "dt": dt_name, "num_vbs": vb_i,
@@ -381,14 +443,138 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
         "adler": file_adler, "segconf": dt.segconf,
         "txt_name": in_path.rsplit("/", 1)[-1],
         "reference": reference.rsplit("/", 1)[-1] if reference else None,
-        "ref_internal": False,
+        "ref_internal": ref_internal,
         "ref_stored": ref_stored,
         "enc": None,
         "md5": None,
         "mgzip": mgzip,
-        "gencomp": None,
+        "gencomp": gencomp_hdr,
     }
     job.write_global_area(file_hdr)
+
+
+class _Gencomp:
+    """SAM/BAM generated components (reference src/gencomp_zip.c): each
+    MAIN VB deports its primaries-with-dependents to PRIM and its
+    secondary/supplementary alignments to DEPN, keeping their line
+    positions (GPPOS/GCPOS) in the MAIN VB. After the MAIN VBs, PRIM is
+    written as component 1 and DEPN, compressed against the SAG store
+    built from PRIM, as component 2."""
+
+    def __init__(self, dt, dt_name, in_path, vb_size):
+        self.dt = dt
+        self.prim_parts = []
+        self.depn_parts = []
+        self.depn_qnames = None
+        # segconf gates the prescan: a sample with no secondary or
+        # supplementary flags skips it; DEPN appearing later still deports
+        # per VB (DEPN-only mode)
+        self.on = dt_name in ("sam", "bam") and \
+            dt.segconf.get("has_depn", True)
+        if self.on and dt.segconf.get("depn_prim_pairs", True):
+            # prescan (reference sam_sag_scan.c): a second streaming pass
+            # finds the qnames with dependents; their primaries deport to
+            # PRIM so DEPN can compress against them
+            with profiler.timer("zip:gencomp-prescan"):
+                self.depn_qnames = self._prescan(in_path, vb_size)
+
+    def _prescan(self, in_path, vb_size):
+        try:
+            r2 = TxtReader(in_path)
+            try:
+                self.dt.read_txt_header(r2)
+                hs = [h for data in r2.vblocks(self.dt, vb_size)
+                      for h in [self.dt.depn_qname_hashes(data)]
+                      if h.shape[0]]
+            finally:
+                r2.close()
+        except (OSError, ValueError):
+            return None    # unseekable input: DEPN-only deportation
+        return np.unique(np.concatenate(hs)) if hs else None
+
+    def split(self, data):
+        """(MAIN VB bytes, (prim positions, depn positions) or None)."""
+        if not self.on:
+            return data, None
+        gc = self.dt.gencomp_split(data, self.depn_qnames)
+        if gc is None:
+            return data, None
+        data, pri, dep, ppos, dpos = gc
+        self.prim_parts.append(pri)
+        self.depn_parts.append(dep)
+        return data, (ppos, dpos)
+
+    @staticmethod
+    def add_positions(res, gcpos):
+        if gcpos is None:
+            return
+        for nm, pos in zip(("GPPOS", "GCPOS"), gcpos):
+            if pos.shape[0]:
+                res.ctxs[nm] = VBCtx(nm, MODE_NUM,
+                                     local=np.diff(pos, prepend=np.int64(0)),
+                                     cat="int", param=1)
+
+    def write_components(self, job, vb_size):
+        """Write PRIM (component 1) and DEPN (component 2); returns the
+        file header's `gencomp` entry, None when nothing was deported."""
+        if not (self.prim_parts or self.depn_parts):
+            return None
+        dt = self.dt
+        e = np.zeros(0, np.uint8)
+        prim = np.concatenate(self.prim_parts) if self.prim_parts else e
+        self.prim_parts = None
+        gp = self._write_chunks(job, prim, 1, vb_size)
+        if prim.shape[0]:
+            # SAG store: DEPN compresses against its primary
+            # (reference sam_sag_ingest.c)
+            dt.sag_store = dt.build_sag_store(prim)
+        del prim
+        depn = np.concatenate(self.depn_parts) if self.depn_parts else e
+        self.depn_parts = None
+        gd = self._write_chunks(job, depn, 2, vb_size)
+        dt.sag_store = None
+        return {"prim_vbs": gp, "depn_vbs": gd}
+
+    def _write_chunks(self, job, txt, comp_i, vb_size):
+        dt = self.dt
+        gvb = 0
+        off = 0
+        while off < txt.shape[0]:
+            end = min(off + vb_size, txt.shape[0])
+            if end < txt.shape[0]:
+                chunk = txt[off:off + int(dt.vb_boundary(txt[off:end], False))]
+            else:
+                chunk = txt[off:end]
+            if chunk.shape[0] == 0:
+                chunk = txt[off:end]
+            gvb += 1
+            job.write_vb(dt.seg_vb(chunk), chunk, gvb, comp_i)
+            off += chunk.shape[0]
+        return gvb
+
+
+def _write_internal_ref(job, iref, blk) -> bool:
+    """REF_INTERNAL (src/reference.c): store the denovo genome built from
+    the alignments, so PIZ reconstructs SEQ without an external reference.
+    Only populated `blk`-byte blocks are stored, as (start, len) ranges
+    (reference src/sections.h:437-450 range compaction); the payload has
+    the layout of `_write_stored_ref`'s. False when nothing was populated."""
+    if not iref.is_set.any():
+        return False
+    if getattr(iref, "blk_set", None) is not None:
+        pop = iref.blk_set > 0
+    else:
+        nblk = -(-iref.length // blk)
+        pad = nblk * blk - iref.length
+        is_set = np.concatenate([iref.is_set[:iref.length],
+                                 np.zeros(pad, bool)])
+        pop = is_set.reshape(-1, blk).any(axis=1)
+    d = np.diff(np.concatenate([[0], pop.view(np.int8), [0]]).astype(np.int8))
+    rs = np.nonzero(d == 1)[0] * blk
+    re_ = np.nonzero(d == -1)[0] * blk
+    ranges = [(int(s), int(min(e, iref.length) - s)) for s, e in zip(rs, re_)]
+    _write_ref_section(job, iref, ranges)
+    return True
 
 
 def _write_stored_ref(job, ref) -> bool:
@@ -399,15 +585,19 @@ def _write_stored_ref(job, ref) -> bool:
     ranges = ref.used_ranges()
     if not ranges:
         return False
+    _write_ref_section(job, ref, [[int(s), int(l)] for s, l in ranges])
+    return True
+
+
+def _write_ref_section(job, ref, ranges):
     meta = fmt.json_payload({"contigs": ref.contigs,
                              "length": int(ref.length),
-                             "ranges": [[int(s), int(l)] for s, l in ranges]})
+                             "ranges": ranges})
     packed = b"".join(packops.pack_np(ref.codes[s:s + l], 2).tobytes()
                       for s, l in ranges)
     payload = len(meta).to_bytes(4, "little") + meta + packed
     job.zw.write_section(fmt.SEC_REFERENCE, payload,
                          codec=codec_assign.assign_best(payload, "text"))
-    return True
 
 
 def zip_pair(in1: str, in2: str, out_path: str, vb_size: int | None = None,

@@ -2,7 +2,10 @@
 chip_smoke.py, imports the JAX package genozip_tpu (or jax), at the top of
 a file or inside a function; and a run of the port's commands in a fresh
 interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module and no `jax`
-in sys.modules."""
+in sys.modules. The SAM/BAM modules (sag, translate, datatypes/sam,
+sam_tags, bam) are among the files walked, and SAM/BAM commands among the
+runs; on a card, SAM and BAM archives from `--device cuda` equal the cpu
+ones."""
 
 import ast
 import json
@@ -49,6 +52,9 @@ def _imports(tree):
 
 def test_sources_found():
     assert len(SOURCES) > 25 and "genozip_tpu_torch/cli.py" in SOURCES
+    for m in ("sag.py", "translate.py", "datatypes/sam.py",
+              "datatypes/sam_tags.py", "datatypes/bam.py"):
+        assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES)
@@ -71,8 +77,12 @@ def inputs(tmp_path_factory):
                             hash_bits=16)
     synth.write_paired_fastq(str(d / "r1.fastq"), str(d / "r2.fastq"), g,
                              200 << 10, seed=6, block=1000)
+    kw = dict(seed=4, genome_len=1 << 20, window_reads=1500)
+    synth.write_bam(str(d / "a.bam"), 200 << 10, **kw)
+    synth.write_sam(str(d / "a.sam"), 300 << 10, **kw)
     codecs.enable_device_rans("cpu", min_size=16 << 10)
     try:
+        zip_pipeline.zip_file(str(d / "a.bam"), str(d / "b.gxz"))
         zip_pipeline.zip_file(str(d / "r.fastq"), str(d / "r.gxz"))
         zip_pipeline.zip_pair(str(d / "r1.fastq"), str(d / "r2.fastq"),
                               str(d / "p.gxz"), reference=str(d / "g.ref.gxz"))
@@ -93,6 +103,9 @@ RUNS = {
     "unzip_pair_reference": ["unzip", "{d}/p.gxz", "--reference",
                              "{d}/g.ref.gxz", "-o", "{t}/p.out", "--device",
                              "cpu"],
+    "zip_sam_gencomp": ["zip", "{d}/a.sam", "-o", "{t}/s.gxz", "--device",
+                        "cpu", "-q"],
+    "unzip_bam": ["unzip", "{d}/b.gxz", "-o", "{t}/b.bam", "--device", "cpu"],
 }
 SCRIPT = """
 import json, sys
@@ -120,8 +133,39 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
         with open(tmp_path / "r.out", "rb") as a, \
                 open(inputs / "r.fastq", "rb") as b:
             assert a.read() == b.read()
+    if case == "unzip_bam":
+        with open(tmp_path / "b.bam", "rb") as a, \
+                open(inputs / "a.bam", "rb") as b:
+            assert a.read() == b.read()
     if case == "unzip_pair_reference":
         for i in (1, 2):
             with open(tmp_path / f"p.out.{i}", "rb") as a, \
                     open(inputs / f"r{i}.fastq", "rb") as b:
                 assert a.read() == b.read()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["a.sam", "a.bam"])
+def test_sam_bam_cuda_archive_equals_cpu(inputs, name, tmp_path):
+    """A SAM and a BAM zipped with --device cuda are the bytes of their
+    --device cpu archives, and unzip on the card gives the input back."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from genozip_tpu_torch import piz_pipeline
+    src = str(inputs / name)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        codecs.enable_device_rans(dev, min_size=16 << 10)
+        try:
+            z = str(tmp_path / f"{dev}.gxz")
+            zip_pipeline.zip_file(src, z)
+            out = str(tmp_path / f"{dev}.out{os.path.splitext(name)[1]}")
+            piz_pipeline.piz_file(z, out)
+        finally:
+            codecs.disable_device_rans()
+        with open(z, "rb") as f, open(out, "rb") as g:
+            outs[dev] = (f.read(), g.read())
+    with open(src, "rb") as f:
+        assert outs["cuda"][1] == f.read()
+    assert outs["cuda"] == outs["cpu"]
