@@ -31,9 +31,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
    before the lane-parallel redesign, the new pass 1 with and without its
    word stores, and the whole new encoder through its C entry point and
    through its wrapper, in us per step.
-3. device equals host: `zip` of a 64 MiB FASTQ with --device cuda and with
+3. device equals host: `zip` of a 32 MiB FASTQ (64 before phase 8 joined
+   the smoke) with --device cuda and with
    --device cpu must write the same archive bytes.
-4. cfg3 full run: `zip`, then `unzip`, of a 512 MiB cfg3-shaped FASTQ,
+4. cfg3 full run: `zip`, then `unzip`, of a 128 MiB cfg3-shaped FASTQ (512
+   before phase 8 joined the smoke),
    compared byte for byte; `cat --head 1000` and `ls`. Every kernel's launch
    count over this run must be > 0.
 5. entry points: the single-stream `encode`, `decode`, `encode_order1`,
@@ -43,7 +45,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    200000} and N in {128, 256, 1024}; kernel and plain times on one 1.84 MB
    VB stream at N = 1024.
 6. cfg4 full run: a 64 Mbp genome (the length of GRCh38 chr20), `zip
-   --make-reference`, 2 x 256 MiB of paired FASTQ off it, `zip --pair
+   --make-reference`, 2 x 64 MiB of paired FASTQ off it (2 x 256 before
+   phase 8 joined the smoke), `zip --pair
    --reference --vblock 16`, `unzip` of both components compared byte for
    byte, `cat --r1 --head 1000`, `cat --interleave --head 1000` and `ls`;
    every kernel's launch count over this run must be > 0. At 2 x 16 MiB the
@@ -59,13 +62,31 @@ Phases, each printed on its own lines; any failure exits non-zero:
    --device cuda archive must equal the --device cpu one, `unzip` is byte
    exact, `cat --head 1000` is the header and the first 1000 records, and
    `cat --one-vb k` over every VB gives the records back in their order.
+8. cfg5x, on phase 7's files (the BAM is written with its SAM text and the
+   R1/R2 FASTQ of its primaries, `synth.write_deep_fastq`; the SAM with its
+   records as a BAM stream): `cat --sam` of the BAM archive equals the
+   generator's SAM text (MB/s printed); `cat --idxstats` of the SAM
+   archive counts the generator's reads per contig; `cat --bam --index -o` of the
+   SAM archive is the same .bam and .bai from cuda and cpu, and its BAM
+   stream the generator's; `cat --regions <contig>:1-1000000 --count` and
+   `cat --lines 1000-2000` equal the selection made in Python; `zip --deep
+   BAM R1 R2 --vblock 32` and `unzip` of every component byte for byte,
+   with MB/s, ratio and each kernel's launches over zip plus unzip (each
+   must be > 0); a 16 MiB BAM off a 4 Mbp cfg5 genome with its R1/R2: the
+   deep archive equal from cuda and cpu, `cat --coverage` of it counting
+   the generator's reads per contig, and `zip --bamass` of the R1
+   against a reference of that genome (under the BAM's contig names), equal
+   from cuda and cpu and unzipped with the reference only; a 64 MiB long-read SAM
+   (`synth.write_longread_sam`) zipped and unzipped byte for byte.
+
+Each phase's seconds and the total are printed.
 
 Neither jax nor any module of the JAX package genozip_tpu may have been
 imported. The last two lines are a JSON object with the numbers of all
 sixteen TPU kernels' counterparts (time, plain time, bytes-or-operations
-bound, launches on the cfg4, cfg3 and cfg5 paths) and {"ok": true, "device":
-{...}}. Needs no network; writes under a temporary directory that it
-removes.
+bound, launches on the cfg4, cfg3, cfg5 and deep paths) and {"ok": true,
+"device": {...}}. Needs no network; writes under a temporary directory
+that it removes.
 """
 
 import argparse
@@ -392,13 +413,13 @@ def head_records(path, k):
         return b"".join(f.readline() for _ in range(4 * k))
 
 
-def phase_cfg3(tmp, smi):
+def phase_cfg3(tmp, smi, full_mib=128, host_mib=32):
     """Phases 3 and 4. Returns the launch counts of the full run."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     # 3. device equals host
-    fq = os.path.join(tmp, "reads64.fastq")
-    synth.write_fastq(fq, 64 * MIB, seed=64)
+    fq = os.path.join(tmp, "reads_host.fastq")
+    synth.write_fastq(fq, host_mib * MIB, seed=64)
     za, zb = fq + ".cuda.gxz", fq + ".cpu.gxz"
     t = time.time()
     run_cli(["zip", fq, "-o", za, "--device", "cuda", "-q"])
@@ -408,15 +429,15 @@ def phase_cfg3(tmp, smi):
     th = time.time() - t
     if not same_file(za, zb):
         raise SystemExit("device equals host: CUDA and CPU archives differ")
-    log(f"device equals host: 64 MiB archives equal "
+    log(f"device equals host: {host_mib} MiB archives equal "
         f"({os.path.getsize(za)} bytes; zip cuda {tc:.1f} s, cpu {th:.1f} s)")
     for p in (fq, za, zb):
         os.remove(p)
 
     # 4. full run
-    fq = os.path.join(tmp, "reads512.fastq")
+    fq = os.path.join(tmp, "reads.fastq")
     t = time.time()
-    size = synth.write_fastq(fq, 512 * MIB, seed=512)
+    size = synth.write_fastq(fq, full_mib * MIB, seed=512)
     log(f"full run: generated {size} bytes in {time.time() - t:.1f} s")
     z, out = fq + ".gxz", fq + ".out"
     torch.cuda.synchronize()
@@ -451,7 +472,7 @@ def phase_cfg3(tmp, smi):
     return counts
 
 
-def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=256):
+def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
     """Phase 6. Returns the launch counts of the paired run."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
@@ -559,17 +580,25 @@ def _bam_txt_len(path):
 
 
 def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
-    """Phase 7. Returns the launch counts of the BAM run (zip + unzip)."""
+    """Phase 7. Returns the launch counts of the BAM run (zip + unzip), and
+    the files phase 8 reuses: the BAM, its archive, its records as SAM text
+    and the R1/R2 FASTQ of its primaries; the SAM, its archive and its
+    records as an uncompressed BAM stream."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     from genozip_tpu_torch.piz_pipeline import PizReader
     from genozip_tpu_torch.zip_pipeline import profiler
     bam = os.path.join(tmp, "cfg5.bam")
+    files = {"bam": bam, "bam_sam": bam + ".sam", "r1": bam + ".R1.fastq",
+             "r2": bam + ".R2.fastq"}
     t = time.time()
-    disk = synth.write_bam(bam, bam_mib * MIB, seed=5)
+    disk = synth.write_deep_fastq(bam, files["r1"], files["r2"], bam_mib * MIB,
+                                  seed=5, sam_path=files["bam_sam"])
     txt = _bam_txt_len(bam)
-    log(f"cfg5: generated a {disk} byte BAM ({txt} bytes of BAM stream) in "
-        f"{time.time() - t:.1f} s")
+    log(f"cfg5: generated a {disk} byte BAM ({txt} bytes of BAM stream), "
+        f"its SAM text ({os.path.getsize(files['bam_sam'])} bytes) and the "
+        f"R1/R2 FASTQ of its primaries ({os.path.getsize(files['r1'])} + "
+        f"{os.path.getsize(files['r2'])} bytes) in {time.time() - t:.1f} s")
     z, out = bam + ".gxz", os.path.join(tmp, "cfg5.out.bam")
     torch.cuda.synchronize()
     profiler.reset()
@@ -611,12 +640,14 @@ def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise SystemExit(f"cfg5: kernels never launched: {missing}")
-    for p in (bam, z, out):
-        os.remove(p)
+    os.remove(out)
+    files.update(z=z, txt=txt)
 
     # the same records as SAM text: device equals host, unzip, cat
     sam = os.path.join(tmp, "cfg5.sam")
-    size = synth.write_sam(sam, sam_mib * MIB, seed=5)
+    files.update(sam=sam, sam_bam=sam + ".bamstream")
+    size = synth.write_sam(sam, sam_mib * MIB, seed=5,
+                           bam_path=files["sam_bam"])
     za, zb = sam + ".cuda.gxz", sam + ".cpu.gxz"
     for dev, zz in (("cuda", za), ("cpu", zb)):
         t = time.time()
@@ -652,7 +683,255 @@ def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
         f"({os.path.getsize(za)} bytes, {nvb} VBs, gencomp {gc}); unzip "
         f"exact; cat --head 1000 and cat --one-vb 1..{nvb} "
         f"({[len(p) for p in pieces]} bytes) equal the input")
-    for p in (sam, za, zb, sam + ".out"):
+    for p in (zb, sam + ".out"):
+        os.remove(p)
+    files["za"] = za
+    return counts, files
+
+
+def _same_stream(gz_path, plain_path):
+    """A gzip file's uncompressed bytes equal a plain file's."""
+    import gzip
+    with gzip.open(gz_path, "rb") as a, open(plain_path, "rb") as b:
+        while True:
+            x, y = a.read(16 * MIB), b.read(16 * MIB)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _mapped_per_contig(sam_path):
+    """({RNAME: mapped records}, unmapped records) of a SAM file."""
+    reads, unmapped = {}, 0
+    with open(sam_path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@"):
+                continue
+            _, flag, rname, _ = line.split(b"\t", 3)
+            if int(flag) & 4:
+                unmapped += 1
+            else:
+                reads[rname.decode()] = reads.get(rname.decode(), 0) + 1
+    return reads, unmapped
+
+
+def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
+                bamass_genome=4 << 20):
+    """Phase 8: cfg5 translations, deep and bamass, on phase 7's files.
+    Returns the launch counts of the deep run (zip + unzip)."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.zip_pipeline import profiler
+    bam, z, za, txt = files["bam"], files["z"], files["za"], files["txt"]
+
+    # cat --sam of the BAM archive: the generator's SAM text
+    out = os.path.join(tmp, "cfg5.cat.sam")
+    profiler.reset()
+    t = time.time()
+    run_cli(["cat", z, "--sam", "-o", out, "--device", "cuda"])
+    tsam = time.time() - t
+    sam_bytes = os.path.getsize(out)
+    if not same_file(out, files["bam_sam"]):
+        with open(out, "rb") as a, open(files["bam_sam"], "rb") as b:
+            ha, hb = a.read(4096), b.read(4096)
+        raise SystemExit("cfg5x: cat --sam differs from the generator's SAM "
+                         f"text; headers {'equal' if ha == hb else 'differ'}"
+                         f": {ha[:300]!r} / {hb[:300]!r}")
+    log(f"cfg5x: cat --sam {sam_bytes / 1e6 / tsam:.2f} MB/s of SAM text, "
+        f"{txt / 1e6 / tsam:.2f} MB/s of BAM stream ({tsam:.1f} s, "
+        f"{sam_bytes} bytes) equal to the generator's text, on {smi}")
+    log("cfg5x: cat --sam regions:\n" + profiler.report())
+    os.remove(out)
+
+    # --idxstats of the SAM archive: the generator's reads per contig
+    t = time.time()
+    idx = run_cli(["cat", za, "--idxstats", "--device", "cuda"], True).decode()
+    tidx = time.time() - t
+    got = {r.split("\t")[0]: int(r.split("\t")[2])
+           for r in idx.splitlines()[:-1]}
+    got_un = int(idx.splitlines()[-1].split("\t")[3])
+    want = _mapped_per_contig(files["sam"])
+    if (got, got_un) != want:
+        raise SystemExit(f"cfg5x: --idxstats {got}/{got_un}, generator "
+                         f"{want}")
+    log(f"cfg5x: --idxstats of the SAM archive ({tidx:.1f} s): reads per "
+        f"contig and unmapped {want}, the generator's")
+
+    # cat --bam --index -o of the SAM archive, on the card and on the host
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ob = os.path.join(tmp, f"cfg5.{dev}.bam")
+        profiler.reset()
+        t = time.time()
+        run_cli(["cat", za, "--bam", "--index", "-o", ob, "--device", dev])
+        outs[dev] = (ob, time.time() - t, profiler.report())
+    ob = outs["cuda"][0]
+    if not (same_file(ob, outs["cpu"][0]) and
+            same_file(ob + ".bai", outs["cpu"][0] + ".bai")):
+        raise SystemExit("cfg5x: cat --bam --index differs between cuda and "
+                         "cpu")
+    if not _same_stream(ob, files["sam_bam"]):
+        raise SystemExit("cfg5x: cat --bam's BAM stream differs from the "
+                         "generator's records")
+    log(f"cfg5x: cat --bam --index of {os.path.getsize(files['sam'])} bytes "
+        f"of SAM: {os.path.getsize(ob)} byte BAM, "
+        f"{os.path.getsize(ob + '.bai')} byte BAI, equal from cuda and cpu, "
+        f"BAM stream equal to the generator's; {outs['cuda'][1]:.1f} s on "
+        f"cuda, {outs['cpu'][1]:.1f} s on cpu")
+    log("cfg5x: cat --bam --index regions:\n" + outs["cuda"][2])
+    for dev in outs:
+        os.remove(outs[dev][0])
+        os.remove(outs[dev][0] + ".bai")
+
+    # --regions with --count, and --lines: the same selection in Python
+    with open(files["sam"], "rb") as f:
+        text = f.read()
+    hdr_len = 0
+    while text.startswith(b"@", hdr_len):
+        hdr_len = text.index(b"\n", hdr_len) + 1
+    recs = text[hdr_len:].splitlines(keepends=True)
+    chrom = synth.cfg5_contigs(small_mib * MIB)[0]
+    in_reg = sum(1 for r in recs if r.split(b"\t", 4)[2] == chrom and
+                 1 <= int(r.split(b"\t", 4)[3]) <= 1_000_000)
+    cnt = run_cli(["cat", za, "--regions", f"{chrom.decode()}:1-1000000",
+                   "--count", "--device", "cuda"], True)
+    lines = run_cli(["cat", za, "--lines", "1000-2000", "--device", "cuda"],
+                    True)
+    if cnt != b"%d\n" % in_reg:
+        raise SystemExit(f"cfg5x: --regions --count gave {cnt!r}, want "
+                         f"{in_reg}")
+    if lines != text[:hdr_len] + b"".join(recs[999:2000]):
+        raise SystemExit("cfg5x: --lines 1000-2000 differs")
+    log(f"cfg5x: --regions {chrom.decode()}:1-1000000 --count = {in_reg} and "
+        f"--lines 1000-2000 equal the selection made from the text")
+    del text, recs
+
+    # deep at full width: the BAM with the FASTQ of its primaries
+    r1, r2 = files["r1"], files["r2"]
+    inputs = txt + os.path.getsize(r1) + os.path.getsize(r2)
+    zd, od = os.path.join(tmp, "deep.gxz"), os.path.join(tmp, "deep.out")
+    torch.cuda.synchronize()
+    profiler.reset()
+    rans_cuda.reset_launches()
+    t = time.time()
+    # 32 MiB VBs: at 16 the packed SEQ of a FASTQ VB's misses (a tenth of
+    # its reads) is about 190 KB, under the 256 KiB at which a stream goes
+    # to the card, and no order-0 stream of the archive is decoded there
+    run_cli(["zip", bam, r1, r2, "--deep", "-o", zd, "--vblock", "32",
+             "--device", "cuda", "-q"])
+    tz = time.time() - t
+    zip_regions = profiler.report()
+    profiler.reset()
+    t = time.time()
+    run_cli(["unzip", zd, "-o", od, "--device", "cuda"])
+    tu = time.time() - t
+    unzip_regions = profiler.report()
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    if not (_same_stream(bam, od + ".1") and same_file(r1, od + ".2")
+            and same_file(r2, od + ".3")):
+        raise SystemExit("cfg5x: deep unzip differs from the inputs")
+    zsize = os.path.getsize(zd)
+    log(f"cfg5x: deep zip {inputs / 1e6 / tz:.2f} MB/s ({tz:.1f} s), unzip "
+        f"{inputs / 1e6 / tu:.2f} MB/s ({tu:.1f} s) of {inputs} input bytes "
+        f"(BAM stream {txt} + R1/R2 FASTQ), ratio {inputs / zsize:.3f} "
+        f"({zsize} bytes); every component unzips byte for byte; on {smi}")
+    log("cfg5x: deep zip --show-time regions:\n" + zip_regions)
+    log("cfg5x: deep unzip --show-time regions:\n" + unzip_regions)
+    log(f"cfg5x: deep launches over zip + unzip {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"cfg5x: kernels never launched: {missing}")
+    for p in (zd, od + ".1", od + ".2", od + ".3"):
+        os.remove(p)
+
+    # a smaller BAM with the FASTQ of its primaries, off a 4 Mbp genome:
+    # deep on the card equals deep on the host, then bamass
+    nb = small_mib * MIB
+    b16, q1, q2 = (os.path.join(tmp, n) for n in
+                   ("d16.bam", "d16.R1.fastq", "d16.R2.fastq"))
+    synth.write_deep_fastq(b16, q1, q2, nb, seed=7, genome_len=bamass_genome,
+                           sam_path=b16 + ".sam")
+    zs = {}
+    for dev in ("cuda", "cpu"):
+        zs[dev] = os.path.join(tmp, f"d16.{dev}.gxz")
+        t = time.time()
+        run_cli(["zip", b16, q1, q2, "--deep", "-o", zs[dev], "--vblock",
+                 "16", "--device", dev, "-q"])
+        log(f"cfg5x: {small_mib} MiB deep zip --device {dev} "
+            f"{time.time() - t:.1f} s")
+    if not same_file(zs["cuda"], zs["cpu"]):
+        raise SystemExit("cfg5x: deep archives differ between cuda and cpu")
+    log(f"cfg5x: {small_mib} MiB deep archives equal from cuda and cpu "
+        f"({os.path.getsize(zs['cuda'])} bytes)")
+
+    # --coverage of the deep archive's BAM: the generator's reads per contig
+    t = time.time()
+    cov = run_cli(["cat", zs["cuda"], "--coverage", "--device", "cuda"],
+                  True).decode()
+    tcov = time.time() - t
+    got = {r.split()[0]: int(r.split()[1].replace(",", ""))
+           for r in cov.splitlines()[1:-1]}
+    got_un = int(cov.splitlines()[-1].split()[1].replace(",", ""))
+    want = _mapped_per_contig(b16 + ".sam")
+    if (got, got_un) != want:
+        raise SystemExit(f"cfg5x: --coverage {got}/{got_un}, generator "
+                         f"{want}")
+    log(f"cfg5x: --coverage of the {small_mib} MiB deep archive "
+        f"({tcov:.1f} s): reads per contig and unmapped {want}, the "
+        f"generator's")
+    for p in (zs["cuda"], zs["cpu"], b16 + ".sam"):
+        os.remove(p)
+
+    # bamass: the R1 placed by its BAM against a reference of the genome
+    fa, ref = os.path.join(tmp, "ba.fa"), os.path.join(tmp, "ba.ref.gxz")
+    synth.write_fasta(fa, synth.cfg5_genome(bamass_genome, 7),
+                      synth.cfg5_contigs(nb, bamass_genome))
+    t = time.time()
+    run_cli(["zip", "--make-reference", fa, "-o", ref, "--device", "cuda"],
+            True)
+    tref = time.time() - t
+    bb, b1 = b16, q1
+    zs = {}
+    for dev in ("cuda", "cpu"):
+        zs[dev] = os.path.join(tmp, f"ba.{dev}.gxz")
+        t = time.time()
+        run_cli(["zip", b1, "--reference", ref, "--bamass", bb, "-o", zs[dev],
+                 "--device", dev, "-q"])
+        log(f"cfg5x: bamass zip of {os.path.getsize(b1)} bytes --device "
+            f"{dev} {time.time() - t:.1f} s")
+    run_cli(["unzip", zs["cuda"], "--reference", ref, "-o", b1 + ".out",
+             "--device", "cuda"])
+    if not same_file(zs["cuda"], zs["cpu"]):
+        raise SystemExit("cfg5x: bamass archives differ between cuda and cpu")
+    if not same_file(b1, b1 + ".out"):
+        raise SystemExit("cfg5x: bamass unzip differs from the input")
+    log(f"cfg5x: bamass: make-reference of {os.path.getsize(fa)} bytes "
+        f"{tref:.1f} s; archives equal from cuda and cpu "
+        f"({os.path.getsize(zs['cuda'])} bytes, ratio "
+        f"{os.path.getsize(b1) / os.path.getsize(zs['cuda']):.3f}); unzip "
+        f"with --reference only is byte exact")
+    for p in (fa, ref, b16, q1, q2, b1 + ".out", zs["cuda"], zs["cpu"]):
+        os.remove(p)
+
+    # long-read SAM
+    lr = os.path.join(tmp, "longread.sam")
+    size = synth.write_longread_sam(lr, longread_mib * MIB, seed=9,
+                                    genome_len=8 << 20)
+    zl = lr + ".gxz"
+    t = time.time()
+    run_cli(["zip", lr, "-o", zl, "--device", "cuda", "-q"])
+    tz = time.time() - t
+    t = time.time()
+    run_cli(["unzip", zl, "-o", lr + ".out", "--device", "cuda"])
+    tu = time.time() - t
+    if not same_file(lr, lr + ".out"):
+        raise SystemExit("cfg5x: long-read unzip differs from the input")
+    log(f"cfg5x: long-read SAM ({size} bytes) zip {size / 1e6 / tz:.2f} MB/s "
+        f"({tz:.1f} s), unzip {size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio "
+        f"{size / os.path.getsize(zl):.3f}, byte exact; on {smi}")
+    for p in (lr, zl, lr + ".out"):
         os.remove(p)
     return counts
 
@@ -974,7 +1253,7 @@ def ab_cfg3(parent, change, smi):
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
-PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5")
+PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5", "cfg5x")
 
 
 def main(argv=None):
@@ -996,6 +1275,17 @@ def main(argv=None):
     unknown = set(phases) - set(PHASES)
     if unknown:
         raise SystemExit(f"unknown phases {sorted(unknown)}")
+    if "cfg5x" in phases and "cfg5" not in phases:
+        raise SystemExit("phase cfg5x runs on cfg5's files: add cfg5")
+    t_start = time.time()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t = time.time()
+        res = fn(*a)
+        phase_s[name] = time.time() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return res
     from genozip_tpu_torch.ops import rans_cuda
 
     # 1. setup
@@ -1016,20 +1306,24 @@ def main(argv=None):
     rans_cuda.lib()
 
     rng = np.random.default_rng(2024)
-    meas, counts3, counts4, counts5 = {}, None, None, None
+    meas, counts3, counts4, counts5, counts8 = {}, None, None, None, None
     if "kernels" in phases:                         # 2
-        meas.update(phase_kernels(rng))
+        meas.update(timed("kernels", phase_kernels, rng))
     if "micro" in phases:                           # 2b
-        phase_micro(np.random.default_rng(7), smi)
+        timed("micro", phase_micro, np.random.default_rng(7), smi)
     with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp:
         if "cfg3" in phases:
-            counts3 = phase_cfg3(tmp, smi)          # 3 and 4
+            counts3 = timed("cfg3", phase_cfg3, tmp, smi)      # 3 and 4
         if "entry" in phases:
-            meas.update(phase_entry(rng))           # 5
+            meas.update(timed("entry", phase_entry, rng))      # 5
         if "cfg4" in phases:
-            counts4 = phase_cfg4(tmp, smi)          # 6
+            counts4 = timed("cfg4", phase_cfg4, tmp, smi)      # 6
         if "cfg5" in phases:
-            counts5 = phase_cfg5(tmp, smi)          # 7
+            counts5, files5 = timed("cfg5", phase_cfg5, tmp, smi)  # 7
+        if "cfg5x" in phases:
+            counts8 = timed("cfg5x", phase_cfg5x, tmp, smi, files5)  # 8
+    log(f"phases {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
+        f", total {time.time() - t_start:.1f} s since setup")
     if "jax" in sys.modules or any(
             k == "genozip_tpu" or k.startswith("genozip_tpu.")
             for k in sys.modules):
@@ -1051,7 +1345,8 @@ def main(argv=None):
                      "entry": f"genozip_tpu_torch.ops.rans_cuda.{entry}",
                      "shape": label, "bytes": nbytes,
                      "launches_cfg3": counts3[name],
-                     "launches_cfg5": counts5[name]})
+                     "launches_cfg5": counts5[name],
+                     "launches_deep": counts8[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

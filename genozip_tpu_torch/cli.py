@@ -1,22 +1,22 @@
 """CLI: zip / unzip / cat / ls for FASTQ (single-end or paired), SAM and BAM,
-with or without a reference genome, and `zip --make-reference` for FASTA.
+with or without a reference genome, `zip --make-reference` for FASTA, `zip
+--deep` (a BAM with its FASTQs) and `zip --bamass`; `cat` translates SAM
+and BAM archives (--sam, --bam [--index], --cram) and counts their reads
+(--coverage, --idxstats).
 
 Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
 where the rANS kernels run: `cuda` (default; raises when no GPU is present)
 or `cpu` (the kernels' plain PyTorch versions). The archive bytes are the
 same either way. Options of the reference whose paths are not ported yet
 raise "not yet ported". GXZ_REFERENCE names the reference when --reference
-is not given.
+is not given. `cat -o FILE` writes what `cat` prints to FILE.
 """
 
 import argparse
 import os
-import sys
 
-# zip and cat options of genozip_tpu whose paths this package has not
-# ported yet
-_ZIP_NOT_PORTED = ("deep", "bamass")
-_CAT_NOT_PORTED = ("sam", "bam", "bai", "cram", "coverage", "idxstats")
+# cat options of genozip_tpu whose paths this package has not ported yet
+_CAT_NOT_PORTED = ("vcf", "password")
 
 
 def _device_arg(p):
@@ -32,7 +32,7 @@ def build_parser():
     z = sub.add_parser("zip", help="compress")
     z.add_argument("input")
     z.add_argument("input2", nargs="*", default=[],
-                   help="R2 FASTQ with --pair")
+                   help="R2 FASTQ with --pair; the FASTQ(s) with --deep")
     z.add_argument("--pair", action="store_true",
                    help="co-compress paired R1/R2 FASTQ files")
     z.add_argument("-o", "--output")
@@ -59,8 +59,12 @@ def build_parser():
     z.add_argument("--optimize", action="store_true",
                    help="LOSSY: bin QUAL to the Illumina 8-level scheme (the "
                         "archive digest covers the modified data)")
-    z.add_argument("--bamass", default=None, help=argparse.SUPPRESS)
-    z.add_argument("--deep", action="store_true", help=argparse.SUPPRESS)
+    z.add_argument("--bamass", default=None,
+                   help="use an existing BAM's alignments for FASTQ SEQ "
+                        "without storing the BAM (needs --reference)")
+    z.add_argument("--deep", action="store_true",
+                   help="co-compress a BAM (the first input) with its "
+                        "FASTQ(s)")
     _device_arg(z)
 
     u = sub.add_parser("unzip", help="decompress")
@@ -92,10 +96,36 @@ def build_parser():
                    help="emit only R2 of a paired archive")
     c.add_argument("--interleave", action="store_true",
                    help="interleave R1/R2 records of a paired archive")
+    c.add_argument("-r", "--regions", default=None,
+                   help="chr[:start-end][,...] region filter")
+    c.add_argument("--bases", default=None,
+                   help="keep reads whose SEQ uses only these IUPAC chars "
+                        "(^ prefix negates)")
+    c.add_argument("--count", action="store_true",
+                   help="print the number of records that pass the filters")
+    c.add_argument("--lines", default=None,
+                   help="record range first-last, 1-based inclusive")
+    c.add_argument("--qnames", default=None,
+                   help="comma-separated QNAMEs, or @FILE with one per line")
+    c.add_argument("--sam", action="store_true",
+                   help="translate a BAM archive to SAM text")
+    c.add_argument("--bam", action="store_true",
+                   help="translate a SAM archive to BAM")
+    c.add_argument("-o", "--output", default=None,
+                   help="write the output to FILE instead of stdout")
+    c.add_argument("--index", action="store_true",
+                   help="with --bam -o FILE: also write FILE.bai")
+    c.add_argument("--cram", action="store_true",
+                   help="translate a SAM/BAM archive to CRAM via samtools")
+    c.add_argument("--cram-ref", default=None,
+                   help="FASTA passed to samtools -T for CRAM encoding")
+    c.add_argument("--coverage", action="store_true",
+                   help="per-contig read/base counts")
+    c.add_argument("--idxstats", action="store_true",
+                   help="samtools-idxstats-style read counts")
     c.add_argument("--reference", default=None)
-    for flag in _CAT_NOT_PORTED:
-        c.add_argument(f"--{flag}", action="store_true",
-                       help=argparse.SUPPRESS)
+    c.add_argument("--vcf", action="store_true", help=argparse.SUPPRESS)
+    c.add_argument("--password", default=None, help=argparse.SUPPRESS)
     _device_arg(c)
 
     l = sub.add_parser("ls", help="list archive metadata")
@@ -134,8 +164,8 @@ def main(argv=None):
         if unported:
             raise NotImplementedError(
                 f"cat --{unported[0]}: not yet ported to genozip_tpu_torch")
-        from .filters import cat_filtered
-        cat_filtered(args, sys.stdout.buffer)
+        from .filters import cat
+        cat(args)
     elif args.cmd == "ls":
         _ls(args)
     if getattr(args, "show_time", False):
@@ -145,10 +175,6 @@ def main(argv=None):
 
 
 def _zip(args):
-    unported = [f for f in _ZIP_NOT_PORTED if getattr(args, f)]
-    if unported:
-        raise NotImplementedError(
-            f"zip --{unported[0]}: not yet ported to genozip_tpu_torch")
     if args.make_reference:
         from .ref.refstore import make_reference
         out = args.output or args.input + ".ref.gxz"
@@ -158,27 +184,34 @@ def _zip(args):
         return
     if args.pair and len(args.input2) != 1:
         raise ValueError("--pair needs two FASTQ inputs")
-    if args.input2 and not args.pair:
+    if args.deep and not args.input2:
+        raise ValueError("--deep needs a BAM plus FASTQ input(s)")
+    if args.input2 and not (args.pair or args.deep):
         raise NotImplementedError(
             "zip of more than one input: not yet ported to genozip_tpu_torch")
     if args.pair and args.store_ref:
         # genozip_tpu's zip_pair drops --REFERENCE without a word and writes
         # an archive that still needs the .ref file
         raise ValueError("--REFERENCE is not supported with --pair")
-    from .zip_pipeline import zip_file, zip_pair
+    from .zip_pipeline import zip_deep, zip_file, zip_pair
     if args.fast:
         from .codecs import assign as _assign
         _assign.set_mode("fast")
     out = args.output or args.input + ".gxz"
     vb = (args.vblock * (1 << 20)) if args.vblock else None
-    if args.pair:
+    if args.deep:
+        zip_deep(args.input, list(args.input2), out, vb_size=vb,
+                 show_stats=args.stats, reference=args.reference,
+                 threads=args.threads)
+    elif args.pair:
         zip_pair(args.input, args.input2[0], out, vb_size=vb,
                  show_stats=args.stats, reference=args.reference,
                  threads=args.threads, optimize=args.optimize)
     else:
         zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
                  threads=args.threads, reference=args.reference,
-                 store_ref=args.store_ref, optimize=args.optimize)
+                 store_ref=args.store_ref, optimize=args.optimize,
+                 bamass=args.bamass)
     if args.test:
         from .piz_pipeline import piz_file
         piz_file(out, None, reference=args.reference)

@@ -4,8 +4,12 @@ Counterpart of genozip_tpu/datatypes/fastq.py: the same seg and recon, so
 archives are byte-identical. SEQ is stored verbatim (NONREF) or, with a
 reference, as aligner placements plus mismatches (SQBITMAP, GPOS, STRAND,
 SEQNM, SEQMISP, SEQMISB, the spliced-alignment contexts and NONREF for
-unaligned reads); R2 of a pair gets R1's placements as a hint. The --deep
-and --bamass paths are not ported yet and raise.
+unaligned reads); R2 of a pair gets R1's placements as a hint. With a
+--bamass index, the BAM's placements stand in for the aligner's seed search
+for the reads they cover (src/fastq_bamass.c). In a --deep archive a read
+whose SEQ (and QUAL) equal its BAM alignment's stores only a hit flag
+(DEEP), and its SEQ and QUAL come back from the deep index at PIZ
+(src/fastq_deep.c).
 Reference parity: src/fastq.c (line-quad parsing :1002, seg :1249),
 src/fastq_seq.c (SEQ methods), src/fastq_qual.c, src/fastq_desc.c.
 Design: the whole VB is parsed in one pass (newline scan →
@@ -32,6 +36,8 @@ class FastqDT(DataType):
     ref = None              # RefGenome when zipped or unzipped --reference
     missing_ref = None      # the archive's reference name when none was given
     pair_gpos_hint = None   # R2: R1's GPOS per read (-1 unaligned)
+    deep_index = None       # deep.DeepIndex of a --deep archive's BAM
+    bamass_index = None     # bamass.BamAssIndex of zip --bamass
 
     def segconf_scan(self, sample):
         """FASTQ calibration: read-length profile, long-read detection
@@ -123,12 +129,15 @@ class FastqDT(DataType):
         d = np.diff(seq_lens, prepend=np.int64(0))
         ctxs["LENS"] = VBCtx("LENS", MODE_NUM, local=d, cat="int", param=1)
 
-        if self.ref is not None and n:
-            self._seg_seq_aligned(ctxs, seq, self.ref)
+        if self.deep_index is not None and n:
+            self._seg_deep(ctxs, desc, seq, qual)
         else:
-            ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=seq.data,
-                                   cat="seq")
-        ctxs["QUAL"] = self._seg_qual(seq, qual)
+            if self.ref is not None and n:
+                self._seg_seq_aligned(ctxs, seq, self.ref, desc)
+            else:
+                ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=seq.data,
+                                       cat="seq")
+            ctxs["QUAL"] = self._seg_qual(seq, qual)
         meta = {"no_final_nl": bool(no_final_nl)}
         return VBSegResult(ctxs, n, meta)
 
@@ -254,19 +263,85 @@ class FastqDT(DataType):
             return ragged.Col(data, offs)
         return pc.txt_col(lens)
 
-    def _seg_seq_aligned(self, ctxs, seq, ref):
+    def _seg_deep(self, ctxs, desc, seq, qual):
+        """Deep path (reference parity: fastq_deep.c:680 fastq_deep_seg_SEQ):
+        reads whose SEQ matches their BAM alignment store only a hit flag
+        (0 = miss, 1 = seq hit, 2 = seq+qual hit); the PIZ side re-derives
+        the alignment by the same qname lookup, so no id stream is needed."""
+        deep = self.deep_index
+        with profiler.timer("zip:deep-lookup"):
+            rows = deep.lookup_rows(desc)
+        fidx = np.nonzero(rows >= 0)[0]
+        flag = np.zeros(len(desc), dtype=np.int64)
+        if fidx.shape[0]:
+            cs, cq = deep.fetch(rows[fidx])
+            seq_eq = ragged.cols_equal_rows(ragged.take(seq, fidx), cs)
+            qual_eq = ragged.cols_equal_rows(ragged.take(qual, fidx), cq) & \
+                seq_eq
+            flag[fidx[seq_eq]] = 1
+            flag[fidx[qual_eq]] = 2
+        ctxs["DEEP"] = VBCtx("DEEP", MODE_NUM, local=flag, cat="int")
+        nonref = ragged.take(seq, np.nonzero(flag == 0)[0])
+        ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=nonref.data, cat="seq")
+        keep_qual = np.nonzero(flag < 2)[0]
+        ctxs["QUAL"] = self._seg_qual(ragged.take(seq, keep_qual),
+                                      ragged.take(qual, keep_qual))
+
+    def _recon_deep(self, pctxs, desc, lens):
+        deep = self.deep_index
+        if deep is None:
+            raise ValueError("deep archive: the BAM component's index is "
+                             "missing")
+        flag = pctxs["DEEP"].nums()
+        n = flag.shape[0]
+        with profiler.timer("piz:deep-lookup"):
+            rows = deep.lookup_rows(desc)
+        hit = flag >= 1
+        if (rows[hit] < 0).any():
+            raise ValueError("deep: a read's QNAME is not in the BAM "
+                             "component")
+        hs, hq = deep.fetch(rows[hit])
+        miss_idx = np.nonzero(~hit)[0]
+        nonref = pctxs["NONREF"].txt_col(lens[miss_idx])
+        seq = ragged.merge_rows(n, [(np.nonzero(hit)[0], hs),
+                                    (miss_idx, nonref)])
+        qkeep_idx = np.nonzero(flag < 2)[0]
+        qv = self.qual_col(pctxs, ragged.take(seq, qkeep_idx),
+                           lens[qkeep_idx])
+        hit2 = np.nonzero(flag == 2)[0]
+        parts = [(qkeep_idx, qv)]
+        if hit2.shape[0]:
+            parts.append((hit2, ragged.take(hq, np.nonzero(flag[hit] == 2)[0])))
+        return seq, ragged.merge_rows(n, parts)
+
+    def _seg_seq_aligned(self, ctxs, seq, ref, desc):
         """Reference-based SEQ seg (reference parity: fastq_seq.c:45
-        fastq_seg_SEQ aligner path; aligner.c:767 aligner_seg_seq)."""
+        fastq_seg_SEQ aligner path; aligner.c:767 aligner_seg_seq). With a
+        bamass index (fastq_bamass.c), BAM placements replace the seed
+        search for the reads they cover; the rest go through the aligner,
+        unspliced and without a pair hint."""
         seq_mat, lens = ragged.to_matrix(seq)
         codes = packops.BASE2BIT[seq_mat]
-        pair_hint = self.pair_gpos_hint
-        if pair_hint is not None and pair_hint.shape[0] != len(seq):
-            pair_hint = None
-        with profiler.timer("zip:align"):
-            res = al.align_batch(ref, codes, lens, pair_gpos=pair_hint,
-                                 splice=True)
-        aligned, gpos, is_fwd = res["aligned"], res["gpos"], res["is_fwd"]
-        gpos2, junction = res["gpos2"], res["junction"]
+        if self.bamass_index is not None:
+            gpos, is_fwd = self.bamass_index.lookup(desc)
+            aligned = (gpos >= 0) & (gpos + lens <= ref.length)
+            rest = np.nonzero(~aligned)[0]
+            if rest.shape[0]:
+                with profiler.timer("zip:align"):
+                    sub = al.align_batch(ref, codes[rest], lens[rest])
+                aligned[rest] = sub["aligned"]
+                gpos[rest] = sub["gpos"]
+                is_fwd[rest] = sub["is_fwd"]
+            gpos2, junction = gpos, lens.astype(np.int64)
+        else:
+            pair_hint = self.pair_gpos_hint
+            if pair_hint is not None and pair_hint.shape[0] != len(seq):
+                pair_hint = None
+            with profiler.timer("zip:align"):
+                res = al.align_batch(ref, codes, lens, pair_gpos=pair_hint,
+                                     splice=True)
+            aligned, gpos, is_fwd = res["aligned"], res["gpos"], res["is_fwd"]
+            gpos2, junction = res["gpos2"], res["junction"]
         if ref.track_used:      # REF_EXT_STORE: the genome ranges used
             ref.mark_used(gpos[aligned], junction[aligned])
             sp2 = aligned & (junction < lens)
@@ -338,14 +413,13 @@ class FastqDT(DataType):
         desc = self._recon_desc(pctxs, lens, n)
         plus = pctxs["PLUS"].dict_take()
         if "DEEP" in pctxs:
-            raise NotImplementedError(
-                "FASTQ archive made with --deep: not yet ported to "
-                "genozip_tpu_torch")
-        if "SQBITMAP" in pctxs:
-            seq = self._recon_seq_aligned(pctxs, lens)
+            seq, qual = self._recon_deep(pctxs, desc, lens)
         else:
-            seq = pctxs["NONREF"].txt_col(lens)
-        qual = self.qual_col(pctxs, seq, lens)
+            if "SQBITMAP" in pctxs:
+                seq = self._recon_seq_aligned(pctxs, lens)
+            else:
+                seq = pctxs["NONREF"].txt_col(lens)
+            qual = self.qual_col(pctxs, seq, lens)
         out = ragged.interleave([desc, seq, plus, qual],
                                 sep_after=[b"\n", b"\n", b"\n", b"\n"])
         raw = out.data.tobytes()

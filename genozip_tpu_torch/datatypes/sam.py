@@ -228,7 +228,12 @@ class SamDT(DataType):
         positions (ref_lock.c's range locking becomes: populate the whole
         batch, then diff — set positions never change afterwards).
         Saturated 4KB blocks are skipped (on 30x data the genome fills in
-        the first VBs; later VBs must not re-scatter everything)."""
+        the first VBs; later VBs must not re-scatter everything). A position
+        an earlier VB's SEQ was diffed against while it was unset
+        (`ref.read_unset`) stays unset: PIZ diffs that VB against the stored
+        genome, so its bases must not change afterwards. genozip_tpu
+        populates it, and the earlier VB then fails its digest at unzip
+        (fault F11)."""
         from ..ops import pack as packops
         if not hasattr(ref, "blk_set"):
             nblk = -(-ref.length // self._POP_BLK)
@@ -276,6 +281,8 @@ class SamDT(DataType):
         gp = start[byte_row] + pos_in
         codes = packops.BASE2BIT[sub.data]
         sel = ~ref.is_set[gp]
+        if getattr(ref, "read_unset", None) is not None:
+            sel &= ~ref.read_unset[gp]
         gsel = gp[sel]
         # duplicate positions within the batch: any winner is fine — the
         # diffs below read the SETTLED array, and the stored genome is
@@ -705,6 +712,12 @@ class SamDT(DataType):
             sbase = seq.data[spos]
             mmk = (ref.codes[gpos] != packops.BASE2BIT[sbase]) \
                 | ~packops.IS_ACGT[sbase]
+            if getattr(ref, "internal", False):
+                # REF_INTERNAL: bases diffed while unset must stay as they
+                # are (see _populate_internal_ref; fault F11)
+                if getattr(ref, "read_unset", None) is None:
+                    ref.read_unset = np.zeros(G, bool)
+                ref.read_unset[gpos[~ref.is_set[gpos]]] = True
             # ops are (row, opidx)-ordered and bytes ascend within an op,
             # so mismatches are already sorted by (row, read position)
             mr = brows[mmk]

@@ -13,7 +13,10 @@ R1 GPOS back to delta-coded R2 GPOS (reference src/piz.c:450-544). SAM/BAM
 gencomp archives reconstruct their PRIM and DEPN components first and
 re-interleave their lines into the MAIN VBs, in VB order
 (src/gencomp_piz.c). A .bam/.gz output is BGZF, byte-exact where the
-archive recorded the input's blocks and zlib level (src/mgzip.c).
+archive recorded the input's blocks and zlib level (src/mgzip.c). A --deep
+archive (a BAM and the FASTQs it came from) reconstructs its BAM component
+first, feeding the deep index in VB order; its FASTQ components take the
+SEQ and QUAL of their matching reads from that index (src/fastq_deep.c).
 
 Reference parity: src/piz.c:880 piz_one_txt_file / :381 piz_reconstruct_one_vb.
 """
@@ -30,6 +33,7 @@ import numpy as np
 from . import codecs
 from .contexts import PCtx, parse_dict_payload
 from .datatypes import get
+from .deep import DeepIndex
 from .format import sections as fmt
 from .ops import pack as packops
 from .ref.refstore import RefGenome, load_ref_file
@@ -84,11 +88,9 @@ class PizReader:
         if payload is None:
             raise ValueError("missing file header")
         self.file_hdr = h = fmt.json_parse(payload)
-        for key, what in (("deep", "--deep archive"),
-                          ("enc", "encrypted archive")):
-            if h.get(key):
-                raise _not_ported(what)
-        if h.get("components") and not h.get("pair"):
+        if h.get("enc"):
+            raise _not_ported("encrypted archive")
+        if h.get("components") and not (h.get("pair") or h.get("deep")):
             raise _not_ported("multi-component archive")
         ref = None
         if h.get("ref_internal"):
@@ -106,6 +108,13 @@ class PizReader:
             cdt.missing_ref = h.get("reference") if ref is None else None
             self.dts.append(cdt)
         self.dt = self.dts[0]
+        # deep: the BAM component (0) feeds the index the FASTQ components
+        # look their reads up in
+        self.deep_index = None
+        if h.get("deep"):
+            self.deep_index = DeepIndex()
+            for d in self.dts[1:]:
+                d.deep_index = self.deep_index
         # the PRIM and DEPN components reconstruct on an instance of their
         # own, which holds the SAG store (reference src/sam_sag_load.c)
         self.gc_dt = None
@@ -215,10 +224,39 @@ class PizReader:
         """VB `vb_i` of component `comp_i`; a MAIN VB of a gencomp archive
         comes back with its deported lines re-interleaved, so MAIN VBs must
         be read (or drained) in order."""
+        return next(self.vbs_in_order([vb_i], comp_i))
+
+    def vbs_in_order(self, vb_ids, comp_i: int = 0, workers: int = 1):
+        """The VBs `vb_ids` of component `comp_i`, one at a time, in order.
+        Up to `workers` VBs load and reconstruct ahead on a thread pool; a
+        MAIN VB of a gencomp archive gets its deported lines back on the
+        consuming thread, when it is taken, so a caller may drain skipped
+        VBs (drain_vb_gencomp) between two takes."""
         gc = comp_i == 0 and self.ensure_gencomp()
-        out, pctxs = self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
-                                          comp_i, want_pctxs=True)
-        return self.merge_vb_gencomp(out, pctxs) if gc else out
+
+        def work(vb_i):
+            return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
+                                        comp_i, want_pctxs=True)
+
+        def merged(res):
+            out, pctxs = res
+            if not gc:
+                return out
+            with profiler.timer("piz:drain"):
+                return self.merge_vb_gencomp(out, pctxs)
+
+        if workers <= 1:
+            for vb_i in vb_ids:
+                yield merged(work(vb_i))
+            return
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            inflight = deque()
+            for vb_i in vb_ids:
+                inflight.append(pool.submit(work, vb_i))
+                if len(inflight) > workers:
+                    yield merged(inflight.popleft().result())
+            while inflight:
+                yield merged(inflight.popleft().result())
 
     def ensure_gencomp(self) -> bool:
         """Load the PRIM/DEPN record queues and the SAG store, once, if the
@@ -367,8 +405,8 @@ class _GcQueue:
 def piz_file(z_path: str, out_path: str | None = None,
              reference: str | None = None) -> int:
     """Reconstruct the archive's file into `out_path` (None: verify only);
-    a paired archive's components go to `out_path`.1 and `out_path`.2.
-    Returns the bytes reconstructed."""
+    the components of a paired or deep archive go to `out_path`.1,
+    `out_path`.2, ... Returns the bytes reconstructed."""
     pr = PizReader(z_path, reference)
     try:
         comps = pr.components()
@@ -404,10 +442,15 @@ def _open_sink(pr, out_path):
     return MgzipExactWriter(open(out_path, "wb"), isizes, mg["level"], header)
 
 
+def workers() -> int:
+    """Threads that reconstruct VBs ahead of an ordered consumer."""
+    return min(os.cpu_count() or 2, 8)
+
+
 def _piz(pr, comp_i, out_path):
     h = pr.file_hdr
     comp = pr.components()[comp_i]
-    gc = comp_i == 0 and pr.ensure_gencomp()
+    deep = pr.deep_index if comp_i == 0 else None
     sink = _open_sink(pr, out_path)
     try:
         md5 = hashlib.md5() if comp_i == 0 and h.get("md5") else None
@@ -421,36 +464,21 @@ def _piz(pr, comp_i, out_path):
                 sink.write(hdr)
             if md5:
                 md5.update(hdr)
-        # workers load+decompress+reconstruct whole VBs concurrently; the
-        # main thread drains in order (running digest and output write)
-        workers = min(os.cpu_count() or 2, 8)
-
-        def work(vb_i):
-            return pr.recon_loaded_vb(pr.load_vb(vb_i, comp_i), vb_i, comp_i,
-                                      want_pctxs=True)
-
-        def drain(fut):
-            nonlocal adler, total
-            out, pctxs = fut.result()
+        # workers load+decompress+reconstruct whole VBs concurrently; this
+        # thread drains them in order (running digest and output write; a
+        # deep archive's BAM records go into the index in VB order)
+        for out in pr.vbs_in_order(range(1, pr.comp_num_vbs(comp_i) + 1),
+                                   comp_i, workers()):
+            if deep is not None:
+                with profiler.timer("piz:deep-index"):
+                    deep.add_bam_records(out)
             with profiler.timer("piz:drain"):
-                if gc:
-                    # in MAIN-VB order, on this thread only
-                    out = pr.merge_vb_gencomp(out, pctxs)
                 adler = zlib.adler32(out, adler)
                 if md5:
                     md5.update(out)
                 total += len(out)
                 if sink:
                     sink.write(out)
-
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            inflight = deque()
-            for vb_i in range(1, pr.comp_num_vbs(comp_i) + 1):
-                inflight.append(pool.submit(work, vb_i))
-                while len(inflight) > workers:
-                    drain(inflight.popleft())
-            while inflight:
-                drain(inflight.popleft())
     finally:
         if sink:
             sink.close()

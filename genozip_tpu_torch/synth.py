@@ -17,13 +17,22 @@ multi-mappers (a primary with XA:Z plus a secondary of the same QNAME), ~4%
 split reads (a 75M75S primary with SA:Z plus a 75H75M supplementary whose
 SEQ/QUAL are the primary's slice), the rest proper pairs with NM/AS/XS (and
 XA:Z on ~10%); 4-bin quality. The BAM is BGZF at zlib level 6.
+`write_deep_fastq` writes such a BAM with the R1/R2 FASTQ its primary
+alignments came from (for `zip --deep`), and `write_bam`/`write_sam` can
+write the other form of the same records beside them.
+
+Long reads (`write_longread_sam`, bench.py's `gen_longread_sam`): 3-20 kb
+reads off a genome, CIGARs of 500-3000 bp matches with 1-7 bp insertions
+and deletions between them, 2% substitutions, ONT-like quality, minimap2's
+NM/ms/AS/nn/tp/cm/s1/s2/de/rl tags.
 
 A vectorized re-implementation of bench.py's generators (its `_genome`,
-`_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`, `gen_bam`), made
-from a numpy seed, for the port's tests and chip_smoke.py. The bytes differ
+`_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`, `gen_bam`,
+`gen_longread_sam`), made from a numpy seed, for the port's tests and chip_smoke.py. The bytes differ
 from bench.py's; the shapes are its.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -127,9 +136,11 @@ def _reads(rng, g: np.ndarray, starts: np.ndarray, rl: int, err: float = 0.003):
     return mat
 
 
-def write_fasta(path: str, g: np.ndarray) -> int:
-    """Genome `g` (ACGT bytes) as a one-contig FASTA with 60-base lines.
-    Returns the bytes written."""
+def write_fasta(path: str, g: np.ndarray, names=None) -> int:
+    """Genome `g` (ACGT bytes) as a FASTA with 60-base lines: one contig
+    `chrB`, or a copy of `g` under each of `names` (cfg5's BAM places its
+    contigs chr1, chr2, ... each on a copy of its genome). Returns the bytes
+    written."""
     G = g.shape[0]
     rows = g[: G - G % 60].reshape(-1, 60)
     block = np.empty((rows.shape[0], 61), np.uint8)
@@ -137,11 +148,46 @@ def write_fasta(path: str, g: np.ndarray) -> int:
     block[:, 60] = ord("\n")
     tail = g[G - G % 60:]
     with open(path, "wb") as f:
-        f.write(b">chrB test benchmark contig\n")
-        f.write(block.tobytes())
-        if tail.shape[0]:
-            f.write(tail.tobytes() + b"\n")
+        for name in names or [b"chrB test benchmark contig"]:
+            f.write(b">%s\n" % name)
+            f.write(block.tobytes())
+            if tail.shape[0]:
+                f.write(tail.tobytes() + b"\n")
         return f.tell()
+
+
+# ---------------------------------------------------------------------------
+# cfg5: sorted alignments with secondary and supplementary records
+# ---------------------------------------------------------------------------
+
+_CFG5_GENOME = 32 << 20
+_CFG5_WINDOW = 2_000_000
+_RL = 150
+_HALF = _RL // 2
+# record kinds: multi-mapper primary / its secondary, split-read primary /
+# its supplementary, proper pair
+_MP, _MS, _SP, _SU, _PR = range(5)
+_CIGARS = (b"150M", b"75M75S", b"75H75M")
+_CIGAR_BIN = tuple(np.asarray(ops, "<u4").tobytes() for ops in (
+    [(150 << 4) | 0], [(75 << 4) | 0, (75 << 4) | 4],
+    [(75 << 4) | 5, (75 << 4) | 0]))
+_BAM_FIXED = np.dtype([
+    ("block_size", "<u4"), ("refid", "<i4"), ("pos", "<i4"),
+    ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
+    ("n_cigar_op", "<u2"), ("flag", "<u2"), ("l_seq", "<u4"),
+    ("next_refid", "<i4"), ("next_pos", "<i4"), ("tlen", "<i4")])
+
+
+def cfg5_genome(genome_len: int = _CFG5_GENOME, seed: int = 2024):
+    """The genome `write_bam` and `write_sam` with `seed` place their reads
+    on (every contig is a copy of it)."""
+    return genome(np.random.default_rng(seed + 1), genome_len)
+
+
+def cfg5_contigs(nbytes: int, genome_len: int = _CFG5_GENOME):
+    """The contig names of a cfg5 file of `nbytes` (bench.py's n_chrom)."""
+    return [b"chr%d" % (c + 1)
+            for c in range(max(1, nbytes // (genome_len * 5 // 4) + 1))]
 
 
 def write_paired_fastq(p1: str, p2: str, g: np.ndarray, nbytes: int,
@@ -177,28 +223,6 @@ def write_paired_fastq(p1: str, p2: str, g: np.ndarray, nbytes: int,
             size += len(c1) + len(c2)
             i += 1
     return size
-
-
-# ---------------------------------------------------------------------------
-# cfg5: sorted alignments with secondary and supplementary records
-# ---------------------------------------------------------------------------
-
-_CFG5_GENOME = 32 << 20
-_CFG5_WINDOW = 2_000_000
-_RL = 150
-_HALF = _RL // 2
-# record kinds: multi-mapper primary / its secondary, split-read primary /
-# its supplementary, proper pair
-_MP, _MS, _SP, _SU, _PR = range(5)
-_CIGARS = (b"150M", b"75M75S", b"75H75M")
-_CIGAR_BIN = tuple(np.asarray(ops, "<u4").tobytes() for ops in (
-    [(150 << 4) | 0], [(75 << 4) | 0, (75 << 4) | 4],
-    [(75 << 4) | 5, (75 << 4) | 0]))
-_BAM_FIXED = np.dtype([
-    ("block_size", "<u4"), ("refid", "<i4"), ("pos", "<i4"),
-    ("l_read_name", "u1"), ("mapq", "u1"), ("bin", "<u2"),
-    ("n_cigar_op", "<u2"), ("flag", "<u2"), ("l_seq", "<u4"),
-    ("next_refid", "<i4"), ("next_pos", "<i4"), ("tlen", "<i4")])
 
 
 def _const(n: int, b: bytes) -> Col:
@@ -346,19 +370,19 @@ def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int):
     reads over window_reads / 60000 * 2 Mbp, bench.py's coverage."""
     rng = np.random.default_rng(seed)
     G = g.shape[0]
-    n_chrom = max(1, nbytes // (G * 5 // 4) + 1)
+    names = cfg5_contigs(nbytes, G)
     hdr = b"@HD\tVN:1.6\tSO:coordinate\n" + b"".join(
-        b"@SQ\tSN:chr%d\tLN:%d\n" % (c + 1, G) for c in range(n_chrom))
+        b"@SQ\tSN:%s\tLN:%d\n" % (nm, G) for nm in names)
 
     span = max(_CFG5_WINDOW * window_reads // 60000, 4 * _RL)
 
     def windows():
         rid = 0
-        for c in range(n_chrom):
+        for c in range(len(names)):
             pos = 1
             while pos < G - 2 * _RL:
                 hi = min(pos + span, G - _RL)
-                yield _cfg5_window(rng, g, b"chr%d" % (c + 1), c, pos, hi,
+                yield _cfg5_window(rng, g, names[c], c, pos, hi,
                                    rid, window_reads)
                 rid += window_reads
                 pos = hi
@@ -366,41 +390,237 @@ def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int):
 
 
 def write_bam(path: str, nbytes: int, seed: int = 2024,
-              genome_len: int = _CFG5_GENOME,
-              window_reads: int = 60000) -> int:
+              genome_len: int = _CFG5_GENOME, window_reads: int = 60000,
+              sam_path: str | None = None, fastq_paths=None) -> int:
     """Write a cfg5-shaped BAM of at least `nbytes` on disk (fewer if the
     contigs run out), BGZF at zlib level 6 through the port's BgzfWriter.
-    Returns the bytes on disk."""
+    `sam_path` also gets the same records as SAM text, and `fastq_paths`
+    (R1, R2) the FASTQ of their primaries (`deep_fastq`). Returns the bytes
+    on disk."""
     from .translate import sam_header_to_bam
     from .utils.bgzf import BgzfWriter
-    g = genome(np.random.default_rng(seed + 1), genome_len)
+    g = cfg5_genome(genome_len, seed)
     hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
-    f = open(path, "wb")
-    w = BgzfWriter(f, 6)
-    w.write(sam_header_to_bam(hdr)[0])
-    for _text, recs in wins:
-        if f.tell() >= nbytes:
-            break
-        w.write(recs)
-    w.close()
+    frng = np.random.default_rng(seed + 2)
+    with contextlib.ExitStack() as stack:
+        f = stack.enter_context(open(path, "wb"))
+        twins = [stack.enter_context(open(p, "wb"))
+                 for p in [sam_path] + list(fastq_paths or []) if p]
+        if sam_path:
+            twins[0].write(hdr)
+        w = BgzfWriter(f, 6)
+        w.write(sam_header_to_bam(hdr)[0])
+        for text, recs in wins:
+            if f.tell() >= nbytes:
+                break
+            w.write(recs)
+            if sam_path:
+                twins[0].write(text)
+            if fastq_paths:
+                for t, fq in zip(twins[-2:], deep_fastq(text, frng)):
+                    t.write(fq)
+        w.close()
     return os.path.getsize(path)
 
 
 def write_sam(path: str, nbytes: int, seed: int = 2024,
               genome_len: int = _CFG5_GENOME,
-              window_reads: int = 60000) -> int:
+              window_reads: int = 60000, bam_path: str | None = None) -> int:
     """The SAM text of `write_bam`'s first records (same seed and genome
     length, same records): the header and whole lines up to the first line
-    end at or past `nbytes`. Returns the bytes written."""
-    g = genome(np.random.default_rng(seed + 1), genome_len)
+    end at or past `nbytes`. `bam_path` also gets the same records as an
+    uncompressed BAM stream (header and records). Returns the bytes
+    written."""
+    from .datatypes.bam import bam_scan
+    from .translate import sam_header_to_bam
+    g = cfg5_genome(genome_len, seed)
     hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
-    with open(path, "wb") as f:
+    with contextlib.ExitStack() as stack:
+        f = stack.enter_context(open(path, "wb"))
+        fb = stack.enter_context(open(bam_path, "wb")) if bam_path else None
         f.write(hdr)
-        for text, _recs in wins:
+        if fb:
+            fb.write(sam_header_to_bam(hdr)[0])
+        for text, recs in wins:
             room = nbytes - f.tell()
             if room <= 0:
                 break
             if len(text) > room:
                 text = text[:text.index(b"\n", room - 1) + 1]
+                _, cut = bam_scan(np.frombuffer(recs, np.uint8),
+                                  text.count(b"\n"))
+                recs = recs[:cut]
             f.write(text)
+            if fb:
+                fb.write(recs)
+        return f.tell()
+
+
+def deep_fastq(text: bytes, rng):
+    """(R1, R2) FASTQ bytes of the primary alignments (flag & 0x900 == 0,
+    SEQ present) among cfg5 SAM lines `text`: each read in its sequencing
+    orientation (reverse-complemented back, QUAL reversed, where flag & 16),
+    R2 where flag & 128 and R1 otherwise, named `@QNAME 1:N:0:ATCACG` (2:
+    for R2). One read in ten has one base changed, so it differs from its
+    alignment."""
+    data = np.frombuffer(text, np.uint8)
+    nl = np.nonzero(data == ord("\n"))[0]
+    starts = np.concatenate([[0], nl[:-1] + 1])
+    lines = ragged.gather_ranges(data, starts, nl - starts)
+    fields, _, good, _ = ragged.split_first_fields(lines, ord("\t"), 11)
+    flag, _ = ragged.atoi(fields[1])
+    keep = np.nonzero(((flag & 0x900) == 0) & (fields[9].lens > 1))[0]
+    flag = flag[keep]
+    qname = ragged.take(fields[0], keep)
+    seq, lens = ragged.to_matrix(ragged.take(fields[9], keep))
+    qual, _ = ragged.to_matrix(ragged.take(fields[10], keep))
+    n, L = seq.shape
+    rev = (flag & 16) != 0
+    idx = np.maximum(lens[:, None] - 1 - np.arange(L)[None, :], 0)
+    seq[rev] = np.take_along_axis(seq, idx, axis=1)[rev]
+    qual[rev] = np.take_along_axis(qual, idx, axis=1)[rev]
+    seq[rev] = packops.ACGT[packops.BASE2BIT[seq[rev]] ^ 3]
+    alter = np.nonzero(rng.random(n) < 0.1)[0]
+    col = (rng.random(alter.shape[0]) * lens[alter]).astype(np.int64)
+    seq[alter, col] = packops.ACGT[(packops.BASE2BIT[seq[alter, col]] + 1) & 3]
+    r2 = (flag & 128) != 0
+    out = []
+    for m, tag in ((~r2, b" 1:N:0:ATCACG"), (r2, b" 2:N:0:ATCACG")):
+        rows = np.nonzero(m)[0]
+        k = rows.shape[0]
+        out.append(ragged.interleave(
+            [_const(k, b"@"), ragged.take(qname, rows), _const(k, tag),
+             ragged.from_matrix(seq[rows], lens[rows]), _const(k, b"+"),
+             ragged.from_matrix(qual[rows], lens[rows])],
+            sep_after=[None, None, b"\n", b"\n", b"\n", b"\n"])
+            .data.tobytes())
+    return tuple(out)
+
+
+def write_deep_fastq(bam_path: str, r1_path: str, r2_path: str, nbytes: int,
+                     seed: int = 2024, sam_path: str | None = None,
+                     **kw) -> int:
+    """A cfg5 BAM of at least `nbytes` on disk at `bam_path` (`write_bam`)
+    and the R1/R2 FASTQ of its primaries (`deep_fastq`) at `r1_path` and
+    `r2_path`: the inputs of `zip --deep`. Returns the BAM's bytes on
+    disk."""
+    return write_bam(bam_path, nbytes, seed, sam_path=sam_path,
+                     fastq_paths=(r1_path, r2_path), **kw)
+
+
+# ---------------------------------------------------------------------------
+# long reads (bench.py gen_longread_sam)
+# ---------------------------------------------------------------------------
+
+_LR_SEGS = 48     # match segments a read may need: 20 kb / 500 bp + margin
+
+
+def _longread_block(rng, g, pos, rid0, n):
+    """SAM lines of `n` long reads starting at genome positions `pos`."""
+    rl = rng.integers(3000, 20000, n)
+    # per read up to _LR_SEGS match segments of 500-3000 bp, each but the
+    # last followed (p = 0.6) by a 1-7 bp insertion or deletion
+    m = rng.integers(500, 3000, (n, _LR_SEGS))
+    ind = np.where(rng.random((n, _LR_SEGS)) < 0.6,
+                   rng.integers(1, 8, (n, _LR_SEGS)), 0)
+    is_ins = rng.random((n, _LR_SEGS)) < 0.5
+    # read bases consumed before segment k; a read ends in the segment
+    # where its length is reached, which it clips, with no indel after it
+    used = np.cumsum(m + np.where(is_ins, ind, 0), axis=1)
+    last = np.minimum((used < rl[:, None]).sum(axis=1), _LR_SEGS - 1)
+    before = np.concatenate([np.zeros((n, 1), np.int64),
+                             used[:, :-1]], axis=1)
+    k = np.arange(_LR_SEGS)[None, :]
+    live = k <= last[:, None]
+    m = np.where(k == last[:, None], np.maximum(rl[:, None] - before, 1), m)
+    ind = np.where(k < last[:, None], ind, 0)
+    ins_len = np.where(is_ins, ind, 0)
+    del_len = np.where(is_ins, 0, ind)
+    # genome start of each match segment
+    gstep = m + del_len
+    gstart = pos[:, None] + np.concatenate(
+        [np.zeros((n, 1), np.int64), np.cumsum(gstep, axis=1)[:, :-1]],
+        axis=1)
+    # read = per segment: match bases off the genome, then inserted bases
+    r_idx, s_idx = np.nonzero(live)
+    mlen, ilen = m[r_idx, s_idx], ins_len[r_idx, s_idx]
+    pool = rng.choice(_BASES, int(ilen.sum()) + 1)
+    src = np.concatenate([g, pool])
+    starts = np.stack([gstart[r_idx, s_idx],
+                       g.shape[0] + np.concatenate([[0], np.cumsum(ilen)[:-1]])],
+                      axis=1).reshape(-1)
+    plens = np.stack([mlen, ilen], axis=1).reshape(-1)
+    seq = ragged.gather_ranges(src, starts, plens)
+    seq_lens = np.bincount(np.repeat(r_idx, 2), weights=plens,
+                           minlength=n).astype(np.int64)
+    seq = Col(seq.data.copy(), np.concatenate([[0], np.cumsum(seq_lens)]))
+    nsub = rng.binomial(seq.data.shape[0], 0.02)
+    sub = rng.integers(0, seq.data.shape[0], nsub)
+    seq.data[sub] = _BASES[rng.integers(0, 4, nsub)]
+    ne = np.bincount(np.searchsorted(seq.offsets[1:], sub, side="right"),
+                     minlength=n) + ind.sum(axis=1)
+    # ONT-like quality: a correlated random walk over a small alphabet
+    walk = np.cumsum(rng.integers(-2, 3, seq.data.shape[0]))
+    walk -= np.repeat(walk[seq.offsets[:-1]] - 1, seq_lens)
+    qual = Col((np.clip(walk % 25 + 5, 2, 40) + 33).astype(np.uint8),
+               seq.offsets)
+    # CIGAR: per live segment "<m>M" then "<ind>I" or "<ind>D" if any
+    cig_num = np.stack([mlen, ind[r_idx, s_idx]], axis=1).reshape(-1)
+    cig_op = np.stack([np.full(mlen.shape[0], ord("M")),
+                       np.where(is_ins[r_idx, s_idx], ord("I"), ord("D"))],
+                      axis=1).reshape(-1).astype(np.uint8)
+    pieces = np.nonzero(cig_num > 0)[0]
+    ops = ragged.interleave([ragged.itoa(cig_num[pieces]),
+                             Col.from_fixed(cig_op[pieces].reshape(-1, 1))])
+    per_read = np.bincount(np.repeat(r_idx, 2)[pieces], weights=ops.lens,
+                           minlength=n).astype(np.int64)
+    cigar = Col(ops.data, np.concatenate([[0], np.cumsum(per_read)]))
+    rl = seq_lens
+    as_v = rl - 6 * ne
+    tab = _const(n, b"\t")
+    text = ragged.interleave([
+        _const(n, b"lr"), ragged.itoa(rid0 + np.arange(n)),
+        _const(n, b"\t0\tchrB\t"), ragged.itoa(pos + 1),
+        _const(n, b"\t60\t"), cigar, _const(n, b"\t*\t0\t0\t"), seq, tab,
+        qual, _const(n, b"\tNM:i:"), ragged.itoa(ne),
+        _const(n, b"\tms:i:"), ragged.itoa(as_v - 2),
+        _const(n, b"\tAS:i:"), ragged.itoa(as_v),
+        _const(n, b"\tnn:i:0\ttp:A:P\tcm:i:"), ragged.itoa(rl // 19),
+        _const(n, b"\ts1:i:"), ragged.itoa(as_v // 2),
+        _const(n, b"\ts2:i:"),
+        ragged.itoa((rng.random(n) * (np.maximum(as_v, 0) // 2 + 1))
+                    .astype(np.int64)),
+        _const(n, b"\tde:f:0."),
+        Col.from_fixed(np.frombuffer(b"".join(
+            b"%04d" % v for v in rng.integers(100, 700, n)), np.uint8)
+            .reshape(n, 4)),
+        _const(n, b"\trl:i:0\n")])
+    return text.data.tobytes()
+
+
+def write_longread_sam(path: str, nbytes: int, seed: int = 2024,
+                       genome_len: int = 64 << 20, block: int = 64) -> int:
+    """Write about `nbytes` of long-read SAM (bench.py `gen_longread_sam`'s
+    shapes) off a `genome_len` genome, in blocks of `block` reads, each read
+    starting 100-2000 bp after the previous one starts. Returns the bytes
+    written."""
+    rng = np.random.default_rng(seed)
+    g = genome(np.random.default_rng(seed + 1), genome_len)
+    G = g.shape[0]
+    hdr = b"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chrB\tLN:%d\n" % G
+    with open(path, "wb") as f:
+        f.write(hdr)
+        pos, rid = 1, 0
+        while f.tell() < nbytes:
+            starts = pos + np.cumsum(rng.integers(100, 2000, block))
+            # a read spans at most 20 kb plus its deletions
+            starts = starts[starts + 25000 < G]
+            if starts.shape[0] == 0:
+                break
+            text = _longread_block(rng, g, starts, rid, starts.shape[0])
+            room = nbytes - f.tell()
+            if len(text) > room:
+                text = text[:text.index(b"\n", room - 1) + 1]
+            f.write(text)
+            pos, rid = int(starts[-1]), rid + starts.shape[0]
         return f.tell()

@@ -256,6 +256,11 @@ def _bgzf_block(payload: bytes, comp: bytes, header: bytes = None) -> bytes:
                                        len(payload) & 0xFFFFFFFF)))
 
 
+def _one_block(payload: bytes, level: int) -> bytes:
+    """One standard BGZF block of `payload` deflated at zlib `level`."""
+    return _bgzf_block(payload, _deflate(payload, level))
+
+
 class BgzfWriter:
     """Standard BGZF output: 65280-byte blocks, htslib's header, an EOF
     marker (the non-exact re-compression of PIZ output)."""

@@ -108,7 +108,7 @@ def rows_equal(a: Col, b: Col) -> np.ndarray:
 
 def cols_equal_rows(a: Col, b: Col) -> np.ndarray:
     """Per-row equality of two same-length columns (genozip_tpu keeps it in
-    deep.py, which the port does not have yet)."""
+    deep.py; SAM/BAM seg and the deep FASTQ seg use it)."""
     n = len(a)
     eq_len = a.lens == b.lens
     out = np.zeros(n, dtype=bool)

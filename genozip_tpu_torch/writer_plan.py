@@ -4,8 +4,11 @@ Counterpart of genozip_tpu/writer_plan.py (reference src/writer.c:866
 writer_create_plan, :1203 writer_main_loop). A plan is a list of typed items
 built from the archive (one component, or a paired archive's two components
 interleaved, the reference's PLAN_INTERLEAVE) and edited by the positional
-filters (--tail/--downsample/--one-vb); per-record predicates (--grep) and
-projections (--seq-only/--qual-only) are applied by the executor, to
+filters (--lines/--tail/--downsample/--one-vb, and --regions, which skips
+the VBs the random-access index places outside every region, except in a
+gencomp archive: fault F12); per-record
+predicates (--grep/--qnames/--bases), the regions' line filter, projections
+(--seq-only/--qual-only) and --count are applied by the executor, to
 interleaved records as to any others. A MAIN VB of a gencomp archive that a
 filter skips stays in the plan as DRAIN_VB, which consumes its share of the
 deported PRIM/DEPN lines, so the VBs after it get their own lines back.
@@ -16,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .format import sections as fmt
+from .regions import regions_overlap
 from .utils import ragged
 
 # plan item kinds
@@ -31,6 +35,7 @@ class PlanItem:
     vb_i: int = 0
     comp_i: int = 0
     start: int = 0            # record index within the VB
+    end: int | None = None    # exclusive; None = to the VB's end
     step: int = 1             # downsample stride (on raw record ordinals)
     phase: int = 0            # stride phase carried across VBs
 
@@ -55,11 +60,25 @@ def records_of(buf: bytes, lines_per_rec: int):
             ends[lines_per_rec - 1::lines_per_rec][:nrec])
 
 
-def build_plan(pr, comp_i: int = 0):
-    """Full plan of one component: header + every VB."""
-    return [PlanItem(TXTHEADER, comp_i=comp_i)] + [
-        PlanItem(VB_RANGE, vb_i=vb_i, comp_i=comp_i)
-        for vb_i in range(1, pr.comp_num_vbs(comp_i) + 1)]
+def build_plan(pr, comp_i: int = 0, regions=None, ra=None):
+    """Full plan of one component: header + every VB. With `regions` and
+    the archive's random-access index `ra`, a VB whose entries overlap no
+    region is a DRAIN_VB (src/sections.h:536-541). Not in a gencomp
+    archive: a MAIN VB's entries cover only the lines it kept, and the
+    PRIM/DEPN lines deported from it may lie in a region (genozip_tpu skips
+    the VB all the same and loses them: fault F12)."""
+    plan = [PlanItem(TXTHEADER, comp_i=comp_i)]
+    if pr.file_hdr.get("gencomp"):
+        ra = None
+    for vb_i in range(1, pr.comp_num_vbs(comp_i) + 1):
+        ents = ra.get(f"{comp_i}:{vb_i}") if regions is not None and \
+            ra is not None else None
+        if ents is not None and not any(
+                regions_overlap(regions, c, lo, hi) for (c, lo, hi) in ents):
+            plan.append(PlanItem(DRAIN_VB, vb_i=vb_i, comp_i=comp_i))
+        else:
+            plan.append(PlanItem(VB_RANGE, vb_i=vb_i, comp_i=comp_i))
+    return plan
 
 
 def build_interleave_plan(pr):
@@ -88,26 +107,33 @@ def edit_one_vb(plan, vb_i: int):
             for it in plan if it.vb_i <= vb_i]
 
 
-def edit_tail(plan, k: int, counts):
-    """--tail=k: keep only the last k records; VBs wholly before them
-    drain, never reconstructed."""
-    total = sum(c for it, c in zip(plan, counts) if it.kind == VB_RANGE)
-    first = max(total - k, 0)      # 0-based ordinal of the first kept record
+def edit_lines_range(plan, first: int, last: int, counts):
+    """--lines=first-last (1-based, inclusive) as a plan trim: VBs wholly
+    outside the range drain, never reconstructed."""
     out = []
     seen = 0
     for it, cnt in zip(plan, counts):
         if it.kind != VB_RANGE:
             out.append(it)
             continue
-        lo = seen
+        lo, hi = seen + 1, seen + cnt   # 1-based record ordinals of this VB
         seen += cnt
-        if seen <= first:
+        if hi < first or lo > last:
             out.append(PlanItem(DRAIN_VB, vb_i=it.vb_i, comp_i=it.comp_i))
             continue
+        e = cnt - max(hi - last, 0)
         out.append(PlanItem(VB_RANGE, vb_i=it.vb_i, comp_i=it.comp_i,
-                            start=max(first - lo, 0), step=it.step,
+                            start=max(first - lo, 0),
+                            end=e if e < cnt else None, step=it.step,
                             phase=it.phase))
     return out
+
+
+def edit_tail(plan, k: int, counts):
+    """--tail=k: keep only the last k records; VBs wholly before them
+    drain, never reconstructed."""
+    total = sum(c for it, c in zip(plan, counts) if it.kind == VB_RANGE)
+    return edit_lines_range(plan, max(total - k, 0) + 1, 1 << 62, counts)
 
 
 def vb_record_counts(pr, plan):
@@ -133,10 +159,15 @@ def vb_record_counts(pr, plan):
 
 def execute_plan(pr, plan, out, lines_per_rec: int = 1, predicate=None,
                  head: int | None = None, tail: int | None = None,
-                 no_header: bool = False, transform=None):
-    """The writer loop: consume plan items in order, apply the per-record
-    predicate, honour the head budget, buffer for tail-after-predicates and
-    emit. `transform` maps each emitted record (None drops it)."""
+                 no_header: bool = False, transform=None,
+                 count_only: bool = False, line_filter=None,
+                 workers: int = 1):
+    """The writer loop: consume plan items in order, apply `line_filter`
+    to each VB's bytes and the per-record predicate, honour the head
+    budget, buffer for tail-after-predicates and emit, or with
+    `count_only` write only the number of records emitted. `transform`
+    maps each emitted record (None drops it). Up to `workers` VBs
+    reconstruct ahead of the loop."""
     emitted = 0
     tail_buf = []
 
@@ -153,44 +184,60 @@ def execute_plan(pr, plan, out, lines_per_rec: int = 1, predicate=None,
                 tail_buf.pop(0)
             return True
         emitted += 1
-        out.write(rec)
+        if not count_only:
+            out.write(rec)
         return not (head and emitted >= head)
 
     whole = predicate is None and head is None and tail is None and \
-        transform is None
-    for it in plan:
-        if it.kind == TXTHEADER:
-            hdr = pr.txt_header(it.comp_i)
-            if hdr and not no_header:
-                out.write(hdr)
-            continue
-        if it.kind == DRAIN_VB:
-            if pr.ensure_gencomp():
-                pr.drain_vb_gencomp(it.vb_i)
-            continue
-        if it.kind == INTERLEAVE:
-            buf, starts, ends = _interleaved(pr, it.vb_i, lines_per_rec)
-        else:
-            buf = pr.read_vb(it.vb_i, it.comp_i)
-        if whole and it.start == 0 and it.step == 1:
-            out.write(buf)
-            continue
-        if it.kind != INTERLEAVE:
-            starts, ends = records_of(buf, lines_per_rec)
-        stop = False
-        for r in range(it.start, starts.shape[0]):
-            if it.step > 1 and (r + it.phase) % it.step != 0:
+        transform is None and not count_only and line_filter is None
+    ranges = [it for it in plan if it.kind == VB_RANGE]
+    if len({it.comp_i for it in ranges}) > 1:
+        raise ValueError("a plan's VB ranges must be of one component")
+    vbs = pr.vbs_in_order([it.vb_i for it in ranges],
+                          ranges[0].comp_i if ranges else 0, workers)
+    try:
+        for it in plan:
+            if it.kind == TXTHEADER:
+                hdr = pr.txt_header(it.comp_i)
+                if hdr and not no_header and not count_only:
+                    out.write(hdr)
                 continue
-            rec = buf[starts[r]:ends[r]]
-            if predicate is not None and not predicate(rec):
+            if it.kind == DRAIN_VB:
+                if pr.ensure_gencomp():
+                    pr.drain_vb_gencomp(it.vb_i)
                 continue
-            if not emit(rec):
-                stop = True
+            if it.kind == INTERLEAVE:
+                buf, starts, ends = _interleaved(pr, it.vb_i, lines_per_rec)
+            else:
+                buf = next(vbs)
+                if line_filter is not None:
+                    buf = line_filter(buf)
+            if whole and it.start == 0 and it.end is None and it.step == 1:
+                out.write(buf)
+                continue
+            if it.kind != INTERLEAVE:
+                starts, ends = records_of(buf, lines_per_rec)
+            end = starts.shape[0] if it.end is None else \
+                min(it.end, starts.shape[0])
+            stop = False
+            for r in range(it.start, end):
+                if it.step > 1 and (r + it.phase) % it.step != 0:
+                    continue
+                rec = buf[starts[r]:ends[r]]
+                if predicate is not None and not predicate(rec):
+                    continue
+                if not emit(rec):
+                    stop = True
+                    break
+            if stop:
                 break
-        if stop:
-            break
-    for rec in tail_buf:
-        out.write(rec)
+    finally:
+        vbs.close()
+    if not count_only:
+        for rec in tail_buf:
+            out.write(rec)
+    else:
+        out.write(b"%d\n" % (len(tail_buf) if tail is not None else emitted))
     return emitted
 
 

@@ -20,6 +20,12 @@ written after the MAIN VBs; DEPN compresses against the SAG store built
 from PRIM (src/sam_sag_ingest.c). A BGZF input's block sizes are stored
 (SEC_GZ_ISIZES) so that unzip can re-emit it byte for byte.
 
+`zip_deep` (--deep) puts a BAM and the FASTQ files it was aligned from into
+one archive: the BAM first (component 0), then each FASTQ, whose reads that
+equal their BAM alignment keep only a hit flag (src/fastq_deep.c). With
+--bamass, a BAM's placements stand in for the aligner's seed search of a
+FASTQ zipped against a reference (src/fastq_bamass.c).
+
 `zip_pair` co-compresses R1/R2 FASTQ (reference src/fastq.c:224-245): R2 VBs
 are built 1:1 with R1 VBs by read count, byte-identical R2 sections are
 dropped ("pair-identical", zip.c:223-234) and R2 GPOS is delta-coded against
@@ -38,12 +44,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import codecs
+from .bamass import build_index as build_bamass_index
 from .codecs import assign as codec_assign
 from .contexts import MODE_NUM, VBCtx, ZCtxGlobal, narrow_int
 from .datatypes import detect, get
+from .deep import DeepIndex
 from .format import sections as fmt
 from .ops import pack as packops
 from .ref.refstore import load_ref_file
+from .regions import ra_entries
 from .txtfile import TxtReader, DEFAULT_VB_SIZE
 from .utils import profiler
 from .utils.bgzf import BgzfBlockReader, MgzipBlockReader
@@ -149,7 +158,7 @@ class ZipJob:
             pv = pctx.local
             if pctx.param == 1:
                 pv = np.cumsum(pv)
-            ents = _ra_entries(cctx.vb_words, cctx.b250, pv)
+            ents = ra_entries(cctx.vb_words, cctx.b250, pv)
             if ents:
                 self.ra_index[f"{comp_i}:{vb_i}"] = ents
         # (sec_type, name, payload, codec, ltype, flags, units, blob|None)
@@ -269,23 +278,6 @@ class ZipJob:
         self.stats.z_len = zw.offset
 
 
-def _ra_entries(chrom_words, b250, pos_vals):
-    """Per-VB random-access entries [(chrom, min_pos, max_pos)] from a chrom
-    dict column (VB-local words), per-line word indices and per-line
-    positions (genozip_tpu/regions.py ra_entries)."""
-    out = []
-    if b250 is None or pos_vals is None or b250.shape[0] == 0:
-        return out
-    npos = min(b250.shape[0], pos_vals.shape[0])
-    b = b250[:npos]
-    p = pos_vals[:npos]
-    for w in np.unique(b):
-        m = b == w
-        name = chrom_words.row(int(w)).decode("utf-8", "replace")
-        out.append([name, int(p[m].min()), int(p[m].max())])
-    return out
-
-
 def _open_component(in_path, reference=None, dt_name=None, ref=None):
     """Open one input: (reader, datatype instance, datatype name). The
     reference genome is `ref` when given, else loaded from `reference`."""
@@ -314,16 +306,22 @@ def _open_component(in_path, reference=None, dt_name=None, ref=None):
 def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
              show_stats: bool = False, threads: int | None = None,
              reference: str | None = None, store_ref: bool = False,
-             optimize: bool = False):
+             optimize: bool = False, bamass: str | None = None):
     """Compress one FASTQ, SAM or BAM file, against `reference` (a .ref.gxz)
-    if given; `store_ref` also stores the genome ranges used (--REFERENCE).
-    The rANS device is whatever `codecs.enable_device_rans` set (host coders
-    only if nothing)."""
+    if given; `store_ref` also stores the genome ranges used (--REFERENCE);
+    `bamass` names a BAM whose alignments place the FASTQ's reads. The rANS
+    device is whatever `codecs.enable_device_rans` set (host coders only if
+    nothing)."""
+    if bamass and not reference:
+        raise ValueError("--bamass needs --reference")
     reader, dt, dt_name = _open_component(in_path, reference)
     try:
         dt.optimize_enabled = optimize
         if store_ref and getattr(dt, "ref", None) is not None:
             dt.ref.start_tracking()
+        if bamass:
+            with profiler.timer("zip:bamass-index"):
+                dt.bamass_index = build_bamass_index(bamass, dt.ref)
         if vb_size is None:
             vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
         job = ZipJob(out_path)
@@ -573,7 +571,8 @@ def _write_internal_ref(job, iref, blk) -> bool:
     rs = np.nonzero(d == 1)[0] * blk
     re_ = np.nonzero(d == -1)[0] * blk
     ranges = [(int(s), int(min(e, iref.length) - s)) for s, e in zip(rs, re_)]
-    _write_ref_section(job, iref, ranges)
+    with profiler.timer("zip:internal-ref"):
+        _write_ref_section(job, iref, ranges)
     return True
 
 
@@ -745,6 +744,129 @@ def _zip_pair_into(job, r1, dt1, r2, dt2, in1, in2, vb_size, reference,
              "adler": adler[1], "num_lines": lines[1]},
         ],
     }
+
+
+def _fanout_component(job, reader, dt, vb_size, comp_i, workers,
+                      on_data=None, adler=None):
+    """Seg one archive component's VBs on `workers` threads and write them
+    in VB order (zip_file's fan-out without calibration or frozen lazy
+    choices, as genozip_tpu's zip_deep runs it). VB 1 segs alone, so its
+    first-sight commits are made once. `on_data` sees each VB's bytes in VB
+    order, before it is written. Returns (txt_len, num_lines, adler,
+    num_vbs); the adler chains from `adler` (e.g. the txt header's)."""
+    adler = zlib.adler32(b"") if adler is None else adler
+    vb_i = tlen = nlines = 0
+
+    def seg_one(data):
+        with profiler.timer("zip:seg"):
+            res = dt.seg_vb(data)
+        with profiler.timer("zip:compress-local"):
+            return res, job.precompress_locals(res)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        inflight = deque()
+
+        def drain():
+            nonlocal vb_i, adler, tlen, nlines
+            data, fut = inflight.popleft()
+            with profiler.timer("zip:seg-wait"):
+                res, pre = fut.result()
+            vb_i += 1
+            adler = zlib.adler32(data, adler)
+            if on_data is not None:
+                on_data(data)
+            with profiler.timer("zip:merge+write"):
+                job.write_vb(res, data, vb_i, comp_i, pre_locals=pre)
+            tlen += data.shape[0]
+            nlines += res.num_lines
+
+        for data in reader.vblocks(dt, vb_size):
+            inflight.append((data, pool.submit(seg_one, data)))
+            if vb_i == 0 or len(inflight) > workers:
+                drain()
+        while inflight:
+            drain()
+    return tlen, nlines, adler, vb_i
+
+
+def zip_deep(bam_path: str, fastq_paths: list, out_path: str,
+             vb_size: int | None = None, show_stats: bool = False,
+             reference: str | None = None, threads: int | None = None):
+    """--deep: a BAM and the FASTQ file(s) it was aligned from into one
+    archive (reference src/fastq_deep.c, src/sam_deep.c). The BAM is
+    component 0, REF_INTERNAL and without gencomp; its VBs seg on one
+    worker, in VB order, since each populates the genome the next diffs
+    against (genozip_tpu segs them on up to 8 threads, so its bytes may
+    depend on timing: fault F9). Its records feed the deep index in VB
+    order. Each FASTQ is a component after it, segged on `threads` workers
+    against the index. `reference` serves the FASTQ components only."""
+    job = ZipJob(out_path)
+    try:
+        stats = _zip_deep_into(job, bam_path, fastq_paths, vb_size,
+                               reference, threads)
+    finally:
+        job.out.close()
+    if show_stats:
+        print_stats(stats)
+    return stats
+
+
+def _zip_deep_into(job, bam_path, fastq_paths, vb_size, reference, threads):
+    index = DeepIndex()
+    comps = []
+    reader, dt, _ = _open_component(bam_path, dt_name="bam")
+    try:
+        if vb_size is None:
+            vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
+        bam_dt = dt
+        hdr = dt.read_txt_header(reader)
+        hadler = zlib.adler32(b"")
+        if hdr:
+            hadler = zlib.adler32(hdr, hadler)
+            job.zw.write_section(fmt.SEC_TXT_HEADER, hdr,
+                                 codec=codec_assign.assign_best(hdr, "text"),
+                                 comp_i=0)
+
+        def ingest(data):
+            with profiler.timer("zip:deep-index"):
+                index.add_bam_records(data.tobytes())
+        tlen, nlines, adler, nvb = _fanout_component(
+            job, reader, dt, vb_size, 0, 1, on_data=ingest, adler=hadler)
+    finally:
+        reader.close()
+    comps.append({"name": bam_path.rsplit("/", 1)[-1], "dt": "bam",
+                  "txt_len": tlen + len(hdr), "adler": adler,
+                  "num_lines": nlines, "num_vbs": nvb,
+                  "segconf": dt.segconf})
+    workers = threads or min(max(os.cpu_count() or 2, 1), 8)
+    ref = None
+    for ci, fq in enumerate(fastq_paths, start=1):
+        reader, dt, _ = _open_component(fq, reference, "fastq", ref=ref)
+        try:
+            ref = dt.ref
+            dt.deep_index = index
+            tlen, nlines, adler, nvb = _fanout_component(
+                job, reader, dt, vb_size, ci, workers)
+        finally:
+            reader.close()
+        comps.append({"name": fq.rsplit("/", 1)[-1], "dt": "fastq",
+                      "txt_len": tlen, "adler": adler, "num_lines": nlines,
+                      "num_vbs": nvb})
+    iref = bam_dt.ref if getattr(bam_dt.ref, "internal", False) else None
+    ref_internal = iref is not None and \
+        _write_internal_ref(job, iref, bam_dt._POP_BLK)
+    job.write_global_area({
+        "version": 2, "dt": "bam",
+        "num_vbs": max(c["num_vbs"] for c in comps),
+        "num_lines": sum(c["num_lines"] for c in comps),
+        "txt_len": sum(c["txt_len"] for c in comps),
+        "adler": None, "segconf": {}, "deep": True,
+        "ref_internal": ref_internal,
+        "txt_name": bam_path.rsplit("/", 1)[-1],
+        "reference": reference.rsplit("/", 1)[-1] if reference else None,
+        "components": comps,
+    })
+    return job.stats
 
 
 def print_stats(stats: ZipStats):

@@ -3,9 +3,10 @@ chip_smoke.py, imports the JAX package genozip_tpu (or jax), at the top of
 a file or inside a function; and a run of the port's commands in a fresh
 interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module and no `jax`
 in sys.modules. The SAM/BAM modules (sag, translate, datatypes/sam,
-sam_tags, bam) are among the files walked, and SAM/BAM commands among the
-runs; on a card, SAM and BAM archives from `--device cuda` equal the cpu
-ones."""
+sam_tags, bam), and those of deep, bamass, coverage and regions, are among
+the files walked, and SAM/BAM, --deep, --bamass and translation commands
+among the runs; on a card, SAM and BAM archives from `--device cuda` equal
+the cpu ones."""
 
 import ast
 import json
@@ -53,7 +54,8 @@ def _imports(tree):
 def test_sources_found():
     assert len(SOURCES) > 25 and "genozip_tpu_torch/cli.py" in SOURCES
     for m in ("sag.py", "translate.py", "datatypes/sam.py",
-              "datatypes/sam_tags.py", "datatypes/bam.py"):
+              "datatypes/sam_tags.py", "datatypes/bam.py", "deep.py",
+              "bamass.py", "coverage.py", "regions.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
@@ -86,6 +88,9 @@ def inputs(tmp_path_factory):
         zip_pipeline.zip_file(str(d / "r.fastq"), str(d / "r.gxz"))
         zip_pipeline.zip_pair(str(d / "r1.fastq"), str(d / "r2.fastq"),
                               str(d / "p.gxz"), reference=str(d / "g.ref.gxz"))
+        zip_pipeline.zip_file(str(d / "a.sam"), str(d / "s.gxz"))
+        zip_pipeline.zip_deep(str(d / "a.bam"), [str(d / "r1.fastq")],
+                              str(d / "d.gxz"))
     finally:
         codecs.disable_device_rans()
     return d
@@ -106,6 +111,20 @@ RUNS = {
     "zip_sam_gencomp": ["zip", "{d}/a.sam", "-o", "{t}/s.gxz", "--device",
                         "cpu", "-q"],
     "unzip_bam": ["unzip", "{d}/b.gxz", "-o", "{t}/b.bam", "--device", "cpu"],
+    "zip_deep": ["zip", "{d}/a.bam", "{d}/r1.fastq", "--deep", "-o",
+                 "{t}/d.gxz", "--device", "cpu", "-q"],
+    "unzip_deep": ["unzip", "{d}/d.gxz", "-o", "{t}/d.out", "--device",
+                   "cpu"],
+    "zip_bamass": ["zip", "{d}/r1.fastq", "--reference", "{d}/g.ref.gxz",
+                   "--bamass", "{d}/a.bam", "-o", "{t}/ba.gxz", "--device",
+                   "cpu", "-q"],
+    "cat_sam": ["cat", "{d}/b.gxz", "--sam", "-o", "{t}/b.sam", "--device",
+                "cpu"],
+    "cat_bam_index": ["cat", "{d}/s.gxz", "--bam", "--index", "-o",
+                      "{t}/s.bam", "--device", "cpu"],
+    "cat_idxstats": ["cat", "{d}/b.gxz", "--idxstats", "--device", "cpu"],
+    "cat_regions_count": ["cat", "{d}/s.gxz", "-r", "chr1:1-100000",
+                          "--count", "--device", "cpu"],
 }
 SCRIPT = """
 import json, sys
@@ -136,6 +155,10 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
     if case == "unzip_bam":
         with open(tmp_path / "b.bam", "rb") as a, \
                 open(inputs / "a.bam", "rb") as b:
+            assert a.read() == b.read()
+    if case == "unzip_deep":
+        with open(tmp_path / "d.out.2", "rb") as a, \
+                open(inputs / "r1.fastq", "rb") as b:
             assert a.read() == b.read()
     if case == "unzip_pair_reference":
         for i in (1, 2):

@@ -196,9 +196,14 @@ def test_device_cuda_without_gpu_raises(archives):
                                   ["r2.fastq"],
                                   ["--deep", "--reference", "g.ref.gxz"]])
 def test_unported_zip_options_raise(archives, flag):
-    """--deep, --bamass and more than one input without --pair."""
+    """More than one input without --pair or --deep is not ported; --deep
+    without its FASTQ inputs and --bamass without --reference are refused
+    before anything is read."""
     d, fq, port, ref, _ = archives
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    want = {"--deep": (ValueError, "needs a BAM plus FASTQ"),
+            "--bamass": (ValueError, "needs --reference"),
+            "r2.fastq": (NotImplementedError, "not yet ported")}[flag[0]]
+    with pytest.raises(want[0], match=want[1]):
         cli.main(["zip", fq, "-o", str(d / "no.gxz"), "--device", "cpu"] + flag)
     codecs.disable_device_rans()
 
