@@ -76,15 +76,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
    deep archive equal from cuda and cpu, `cat --coverage` of it counting
    the generator's reads per contig, and `zip --bamass` of the R1
    against a reference of that genome (under the BAM's contig names), equal
-   from cuda and cpu and unzipped with the reference only; a 64 MiB long-read SAM
-   (`synth.write_longread_sam`) zipped and unzipped byte for byte.
+   from cuda and cpu and unzipped with the reference only; a 64 MiB
+   long-read SAM (`synth.write_longread_sam`) zipped and unzipped byte for
+   byte.
+9. cfg1, cfg2 and the other datatypes: a 64 MiB VCF of a 200-sample
+   cohort (`synth.write_vcf`, bench.py's `gen_vcf` shapes) through `zip
+   --vblock 16`, `unzip` (byte for byte), `ls`, `cat --head 1000` and `cat
+   -r chr1:a-b --count` (against the selection made in Python), with MB/s,
+   ratio, the --show-time regions and each kernel's launches over the run
+   (each must be > 0); 16 MiB of it: the --device cuda archive equals the
+   --device cpu one, and the launches at the default VB size are printed;
+   16 MiB against an 8 Mbp genome named chr1 (the VCF's CHROM is 1): a
+   --reference archive unzipped with it and a --REFERENCE one without it;
+   cfg2, phase 6's 64 Mbp FASTA zipped as a file at --vblock 16 (written
+   here when phase 6 did not run), cuda == cpu, unzip byte exact, MB/s and
+   launches; 16 MiB each of GFF3, BED, 23andMe, LOCS and a log zipped with
+   `--input-type generic`, each cuda == cpu and unzipped byte for byte,
+   with MB/s; and `cat --vcf` of the 23andMe archive against the chr1
+   reference, equal to `translate.me23_vb_to_vcf` of the generator's text.
 
-Each phase's seconds and the total are printed.
+They run in the order 2, 2b, 5, 3-4, 6-9. The inputs of phases 7-9 are
+written in a child process (`InputWriter`, numpy on the host) while phases
+2, 2b and 5 keep the card busy; phase 3 starts when it is done. Each
+phase's seconds and the total are printed.
 
 Neither jax nor any module of the JAX package genozip_tpu may have been
 imported. The last two lines are a JSON object with the numbers of all
 sixteen TPU kernels' counterparts (time, plain time, bytes-or-operations
-bound, launches on the cfg4, cfg3, cfg5 and deep paths) and {"ok": true,
+bound, launches on the cfg4, cfg3, cfg5, deep, cfg1 and cfg2 paths) and
+{"ok": true,
 "device": {...}}. Needs no network; writes under a temporary directory
 that it removes.
 """
@@ -136,6 +156,9 @@ TPU_ROWS = [
 ]
 ENTRY_N = (100, 517, 33000, 131072, 200000)
 CHR20_BP = 64_444_167     # GRCh38 chr20, the cfg4 genome's length
+# input sizes of phases 7-9 in MiB, shared by the phases and `InputWriter`
+CFG5_MIB, SAM_MIB, SMALL_MIB, LONGREAD_MIB, CFG1_MIB = 64, 16, 16, 64, 64
+BAMASS_GENOME, CFG1_REF_BP = 4 << 20, 8 << 20
 ENTRY_LANES = (128, 256, 1024)
 QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
 HBM_BPS = 3.35e12         # H100 SXM device memory, bytes/s
@@ -147,9 +170,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean ms per call of fn() on the current stream, after one warm-up."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean ms per call of fn() on the current stream, after one warm-up
+    call (unless `warm` is False: fn has just run)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
@@ -271,7 +296,8 @@ def check_kernel(name, order, is_enc, datas, lanes, time_plain=True, reps=5):
         raise SystemExit(f"{name}: kernel differs from plain "
                          f"(max_abs_err {err})")
     ms = cuda_ms(timed, reps) if reps else None
-    pms = cuda_ms(plain, 1) if time_plain and reps else None
+    # plain() ran above for the comparison: that was its warm-up
+    pms = cuda_ms(plain, 1, warm=False) if time_plain and reps else None
     return err, ms, pms, nbytes, sum(map(len, datas))
 
 
@@ -408,9 +434,133 @@ def same_file(a, b):
     return subprocess.run(["cmp", "-s", a, b]).returncode == 0
 
 
+def zip_cuda_cpu(srcs, stem, extra, what):
+    """`zip` of `srcs` with --device cuda, then with --device cpu, into
+    `stem`.cuda.gxz and `stem`.cpu.gxz; fail unless the two archives are the
+    same bytes. Returns ({device: archive}, {device: zip seconds})."""
+    zs, ts = {}, {}
+    for dev in ("cuda", "cpu"):
+        zs[dev] = f"{stem}.{dev}.gxz"
+        t = time.time()
+        run_cli(["zip", *srcs, "-o", zs[dev], "--device", dev, "-q", *extra])
+        ts[dev] = time.time() - t
+    if not same_file(zs["cuda"], zs["cpu"]):
+        raise SystemExit(f"{what}: CUDA and CPU archives differ")
+    return zs, ts
+
+
 def head_records(path, k):
     with open(path, "rb") as f:
         return b"".join(f.readline() for _ in range(4 * k))
+
+
+def write_input(path, write, *a, **kw):
+    """Write the input file `path` of a phase with `write(path, *a, **kw)`,
+    unless it is there already (`InputWriter` wrote it); returns its
+    bytes."""
+    if not os.path.exists(path):
+        t = time.time()
+        write(path, *a, **kw)
+        log(f"input {os.path.basename(path)}: written in "
+            f"{time.time() - t:.1f} s")
+    return os.path.getsize(path)
+
+
+def chr1_genome(ref_bp):
+    """Phase 9's genome, whose one contig is named chr1."""
+    from genozip_tpu_torch import synth
+    return synth.genome(np.random.default_rng(91), ref_bp)
+
+
+def _write_ref_vcf(path, nbytes, ref_bp):
+    from genozip_tpu_torch import synth
+    synth.write_vcf(path, nbytes, seed=17, chrom=b"1",
+                    genome=chr1_genome(ref_bp))
+
+
+OTHER_DATATYPES = [  # phase 9: datatype, file name, synth writer, zip options
+    ("gff", "genes.gff3", "write_gff", []),
+    ("bed", "peaks.bed", "write_bed", []),
+    ("me23", "genome_23andme.txt", "write_me23", []),
+    ("locs", "s_1_1101.locs", "write_locs", []),
+    ("generic", "server.log", "write_generic", ["--input-type", "generic"])]
+
+
+def phase_inputs(phase, tmp, bam_mib=CFG5_MIB, sam_mib=SAM_MIB,
+                 small_mib=SMALL_MIB, longread_mib=LONGREAD_MIB,
+                 bamass_genome=BAMASS_GENOME, vcf_mib=CFG1_MIB,
+                 ref_bp=CFG1_REF_BP):
+    """The input files of phase 7 (cfg5), 8 (cfg5x) or 9 (cfg1) as
+    `write_input` arguments: (path, writer, *args, {keywords})."""
+    from genozip_tpu_torch import synth
+    j = os.path.join
+    if phase == "cfg5":
+        bam, sam = j(tmp, "cfg5.bam"), j(tmp, "cfg5.sam")
+        return [(bam, synth.write_deep_fastq, bam + ".R1.fastq",
+                 bam + ".R2.fastq", bam_mib * MIB,
+                 dict(seed=5, sam_path=bam + ".sam")),
+                (sam, synth.write_sam, sam_mib * MIB,
+                 dict(seed=5, bam_path=sam + ".bamstream"))]
+    if phase == "cfg5x":
+        b16 = j(tmp, "d16.bam")
+        return [(b16, synth.write_deep_fastq, j(tmp, "d16.R1.fastq"),
+                 j(tmp, "d16.R2.fastq"), small_mib * MIB,
+                 dict(seed=7, genome_len=bamass_genome,
+                      sam_path=b16 + ".sam")),
+                (j(tmp, "longread.sam"), synth.write_longread_sam,
+                 longread_mib * MIB, dict(seed=9, genome_len=8 << 20))]
+    assert phase == "cfg1", phase
+    return [(j(tmp, "cfg1.vcf"), synth.write_vcf, vcf_mib * MIB,
+             dict(seed=9)),
+            (j(tmp, "cfg1_16.vcf"), synth.write_vcf, small_mib * MIB,
+             dict(seed=16)),
+            (j(tmp, "cfg1_ref.vcf"), _write_ref_vcf, small_mib * MIB, ref_bp,
+             {})] + [(j(tmp, name), getattr(synth, writer), small_mib * MIB,
+                      dict(seed=19))
+                     for _, name, writer, _ in OTHER_DATATYPES]
+
+
+def write_inputs(phase, tmp, **sizes):
+    """`write_input` of each of `phase_inputs(phase, tmp, **sizes)`."""
+    for path, write, *a, kw in phase_inputs(phase, tmp, **sizes):
+        write_input(path, write, *a, **kw)
+
+
+def _write_inputs(tmp, phases, threads):
+    from genozip_tpu_torch import synth
+    synth._GEN_THREADS = threads
+    for phase in phases:
+        write_inputs(phase, tmp)
+
+
+class InputWriter:
+    """Writes the inputs of phases 7-9 (numpy on the host, nothing on the
+    card) in a child process, started before phase 2 so that it runs beside
+    the card-bound phases 2, 2b and 5 on all but two of the host's cores;
+    `wait` before a phase reads them."""
+
+    def __init__(self, tmp, phases):
+        import multiprocessing
+        todo = [p for p in ("cfg5", "cfg5x", "cfg1") if p in phases]
+        self.proc = None
+        if todo:
+            ctx = multiprocessing.get_context("spawn")
+            self.proc = ctx.Process(target=_write_inputs, args=(
+                tmp, todo, max(1, (os.cpu_count() or 4) - 2)))
+            self.proc.start()
+
+    def wait(self):
+        if self.proc is None:
+            return
+        self.proc.join()
+        rc, self.proc = self.proc.exitcode, None
+        if rc != 0:
+            raise SystemExit(f"the input writer exited {rc}")
+
+    def stop(self):
+        if self.proc is not None and self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join()
 
 
 def phase_cfg3(tmp, smi, full_mib=128, host_mib=32):
@@ -420,18 +570,11 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32):
     # 3. device equals host
     fq = os.path.join(tmp, "reads_host.fastq")
     synth.write_fastq(fq, host_mib * MIB, seed=64)
-    za, zb = fq + ".cuda.gxz", fq + ".cpu.gxz"
-    t = time.time()
-    run_cli(["zip", fq, "-o", za, "--device", "cuda", "-q"])
-    tc = time.time() - t
-    t = time.time()
-    run_cli(["zip", fq, "-o", zb, "--device", "cpu", "-q"])
-    th = time.time() - t
-    if not same_file(za, zb):
-        raise SystemExit("device equals host: CUDA and CPU archives differ")
+    zs, ts = zip_cuda_cpu([fq], fq, [], "device equals host")
     log(f"device equals host: {host_mib} MiB archives equal "
-        f"({os.path.getsize(za)} bytes; zip cuda {tc:.1f} s, cpu {th:.1f} s)")
-    for p in (fq, za, zb):
+        f"({os.path.getsize(zs['cuda'])} bytes; zip cuda {ts['cuda']:.1f} s, "
+        f"cpu {ts['cpu']:.1f} s)")
+    for p in (fq, *zs.values()):
         os.remove(p)
 
     # 4. full run
@@ -489,7 +632,7 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
             True)
     tref = time.time() - t
     log(f"cfg4: make-reference {tref:.1f} s -> {os.path.getsize(ref)} bytes")
-    os.remove(fa)
+    # the FASTA stays for phase 9, which zips it as a file (cfg2)
 
     r1, r2 = os.path.join(tmp, "cfg4_R1.fastq"), os.path.join(tmp, "cfg4_R2.fastq")
     t = time.time()
@@ -548,24 +691,20 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
     # 2 x 16 MiB: device equals host, and --REFERENCE without --reference
     s1, s2 = os.path.join(tmp, "s_R1.fastq"), os.path.join(tmp, "s_R2.fastq")
     synth.write_paired_fastq(s1, s2, g, 16 * MIB, seed=16)
-    za, zb = os.path.join(tmp, "s.cuda.gxz"), os.path.join(tmp, "s.cpu.gxz")
-    for dev, zz in (("cuda", za), ("cpu", zb)):
-        t = time.time()
-        run_cli(["zip", s1, s2, "--pair", "--reference", ref, "-o", zz,
-                 "--device", dev, "--vblock", "16", "-q"])
-        log(f"cfg4: 2 x 16 MiB zip --device {dev} {time.time() - t:.1f} s")
-    if not same_file(za, zb):
-        raise SystemExit("cfg4: CUDA and CPU paired archives differ")
-    zs = os.path.join(tmp, "s.stored.gxz")
-    run_cli(["zip", s1, "--reference", ref, "--REFERENCE", "-o", zs,
+    zs, ts = zip_cuda_cpu([s1, s2], os.path.join(tmp, "s"), [
+        "--pair", "--reference", ref, "--vblock", "16"], "cfg4: paired")
+    for dev in zs:
+        log(f"cfg4: 2 x 16 MiB zip --device {dev} {ts[dev]:.1f} s")
+    zst = os.path.join(tmp, "s.stored.gxz")
+    run_cli(["zip", s1, "--reference", ref, "--REFERENCE", "-o", zst,
              "--device", "cuda", "-q"])
-    run_cli(["unzip", zs, "-o", zs + ".out", "--device", "cuda"])
-    if not same_file(s1, zs + ".out"):
+    run_cli(["unzip", zst, "-o", zst + ".out", "--device", "cuda"])
+    if not same_file(s1, zst + ".out"):
         raise SystemExit("cfg4: --REFERENCE archive did not unzip without "
                          "--reference")
     log(f"cfg4: 2 x 16 MiB archives equal from cuda and cpu "
-        f"({os.path.getsize(za)} bytes); --REFERENCE archive "
-        f"({os.path.getsize(zs)} bytes) unzipped without --reference")
+        f"({os.path.getsize(zs['cuda'])} bytes); --REFERENCE archive "
+        f"({os.path.getsize(zst)} bytes) unzipped without --reference")
     return counts
 
 
@@ -579,26 +718,23 @@ def _bam_txt_len(path):
     return n
 
 
-def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
+def phase_cfg5(tmp, smi, bam_mib=CFG5_MIB, sam_mib=SAM_MIB):
     """Phase 7. Returns the launch counts of the BAM run (zip + unzip), and
     the files phase 8 reuses: the BAM, its archive, its records as SAM text
     and the R1/R2 FASTQ of its primaries; the SAM, its archive and its
     records as an uncompressed BAM stream."""
-    from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     from genozip_tpu_torch.piz_pipeline import PizReader
     from genozip_tpu_torch.zip_pipeline import profiler
     bam = os.path.join(tmp, "cfg5.bam")
     files = {"bam": bam, "bam_sam": bam + ".sam", "r1": bam + ".R1.fastq",
              "r2": bam + ".R2.fastq"}
-    t = time.time()
-    disk = synth.write_deep_fastq(bam, files["r1"], files["r2"], bam_mib * MIB,
-                                  seed=5, sam_path=files["bam_sam"])
-    txt = _bam_txt_len(bam)
-    log(f"cfg5: generated a {disk} byte BAM ({txt} bytes of BAM stream), "
-        f"its SAM text ({os.path.getsize(files['bam_sam'])} bytes) and the "
-        f"R1/R2 FASTQ of its primaries ({os.path.getsize(files['r1'])} + "
-        f"{os.path.getsize(files['r2'])} bytes) in {time.time() - t:.1f} s")
+    write_inputs("cfg5", tmp, bam_mib=bam_mib, sam_mib=sam_mib)
+    disk, txt = os.path.getsize(bam), _bam_txt_len(bam)
+    log(f"cfg5: a {disk} byte BAM ({txt} bytes of BAM stream), its SAM text "
+        f"({os.path.getsize(files['bam_sam'])} bytes) and the R1/R2 FASTQ of "
+        f"its primaries ({os.path.getsize(files['r1'])} + "
+        f"{os.path.getsize(files['r2'])} bytes)")
     z, out = bam + ".gxz", os.path.join(tmp, "cfg5.out.bam")
     torch.cuda.synchronize()
     profiler.reset()
@@ -646,17 +782,12 @@ def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
     # the same records as SAM text: device equals host, unzip, cat
     sam = os.path.join(tmp, "cfg5.sam")
     files.update(sam=sam, sam_bam=sam + ".bamstream")
-    size = synth.write_sam(sam, sam_mib * MIB, seed=5,
-                           bam_path=files["sam_bam"])
-    za, zb = sam + ".cuda.gxz", sam + ".cpu.gxz"
-    for dev, zz in (("cuda", za), ("cpu", zb)):
-        t = time.time()
-        run_cli(["zip", sam, "-o", zz, "--device", dev, "--vblock",
-                 str(max(1, sam_mib // 4)), "-q"])
-        log(f"cfg5: {size} bytes of SAM zip --device {dev} "
-            f"{time.time() - t:.1f} s")
-    if not same_file(za, zb):
-        raise SystemExit("cfg5: CUDA and CPU SAM archives differ")
+    size = os.path.getsize(sam)
+    zs, ts = zip_cuda_cpu([sam], sam, ["--vblock",
+                                       str(max(1, sam_mib // 4))], "cfg5: SAM")
+    za = zs["cuda"]
+    for dev in zs:
+        log(f"cfg5: {size} bytes of SAM zip --device {dev} {ts[dev]:.1f} s")
     run_cli(["unzip", za, "-o", sam + ".out", "--device", "cuda"])
     if not same_file(sam, sam + ".out"):
         raise SystemExit("cfg5: SAM unzip output differs from the input")
@@ -683,7 +814,7 @@ def phase_cfg5(tmp, smi, bam_mib=64, sam_mib=16):
         f"({os.path.getsize(za)} bytes, {nvb} VBs, gencomp {gc}); unzip "
         f"exact; cat --head 1000 and cat --one-vb 1..{nvb} "
         f"({[len(p) for p in pieces]} bytes) equal the input")
-    for p in (zb, sam + ".out"):
+    for p in (zs["cpu"], sam + ".out"):
         os.remove(p)
     files["za"] = za
     return counts, files
@@ -716,14 +847,16 @@ def _mapped_per_contig(sam_path):
     return reads, unmapped
 
 
-def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
-                bamass_genome=4 << 20):
+def phase_cfg5x(tmp, smi, files, small_mib=SMALL_MIB,
+                longread_mib=LONGREAD_MIB, bamass_genome=BAMASS_GENOME):
     """Phase 8: cfg5 translations, deep and bamass, on phase 7's files.
     Returns the launch counts of the deep run (zip + unzip)."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     from genozip_tpu_torch.zip_pipeline import profiler
     bam, z, za, txt = files["bam"], files["z"], files["za"], files["txt"]
+    write_inputs("cfg5x", tmp, small_mib=small_mib, longread_mib=longread_mib,
+                 bamass_genome=bamass_genome)
 
     # cat --sam of the BAM archive: the generator's SAM text
     out = os.path.join(tmp, "cfg5.cat.sam")
@@ -851,18 +984,11 @@ def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
     nb = small_mib * MIB
     b16, q1, q2 = (os.path.join(tmp, n) for n in
                    ("d16.bam", "d16.R1.fastq", "d16.R2.fastq"))
-    synth.write_deep_fastq(b16, q1, q2, nb, seed=7, genome_len=bamass_genome,
-                           sam_path=b16 + ".sam")
-    zs = {}
-    for dev in ("cuda", "cpu"):
-        zs[dev] = os.path.join(tmp, f"d16.{dev}.gxz")
-        t = time.time()
-        run_cli(["zip", b16, q1, q2, "--deep", "-o", zs[dev], "--vblock",
-                 "16", "--device", dev, "-q"])
+    zs, ts = zip_cuda_cpu([b16, q1, q2], os.path.join(tmp, "d16"),
+                          ["--deep", "--vblock", "16"], "cfg5x: deep")
+    for dev in zs:
         log(f"cfg5x: {small_mib} MiB deep zip --device {dev} "
-            f"{time.time() - t:.1f} s")
-    if not same_file(zs["cuda"], zs["cpu"]):
-        raise SystemExit("cfg5x: deep archives differ between cuda and cpu")
+            f"{ts[dev]:.1f} s")
     log(f"cfg5x: {small_mib} MiB deep archives equal from cuda and cpu "
         f"({os.path.getsize(zs['cuda'])} bytes)")
 
@@ -893,18 +1019,13 @@ def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
             True)
     tref = time.time() - t
     bb, b1 = b16, q1
-    zs = {}
-    for dev in ("cuda", "cpu"):
-        zs[dev] = os.path.join(tmp, f"ba.{dev}.gxz")
-        t = time.time()
-        run_cli(["zip", b1, "--reference", ref, "--bamass", bb, "-o", zs[dev],
-                 "--device", dev, "-q"])
+    zs, ts = zip_cuda_cpu([b1], os.path.join(tmp, "ba"), [
+        "--reference", ref, "--bamass", bb], "cfg5x: bamass")
+    for dev in zs:
         log(f"cfg5x: bamass zip of {os.path.getsize(b1)} bytes --device "
-            f"{dev} {time.time() - t:.1f} s")
+            f"{dev} {ts[dev]:.1f} s")
     run_cli(["unzip", zs["cuda"], "--reference", ref, "-o", b1 + ".out",
              "--device", "cuda"])
-    if not same_file(zs["cuda"], zs["cpu"]):
-        raise SystemExit("cfg5x: bamass archives differ between cuda and cpu")
     if not same_file(b1, b1 + ".out"):
         raise SystemExit("cfg5x: bamass unzip differs from the input")
     log(f"cfg5x: bamass: make-reference of {os.path.getsize(fa)} bytes "
@@ -917,8 +1038,7 @@ def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
 
     # long-read SAM
     lr = os.path.join(tmp, "longread.sam")
-    size = synth.write_longread_sam(lr, longread_mib * MIB, seed=9,
-                                    genome_len=8 << 20)
+    size = os.path.getsize(lr)
     zl = lr + ".gxz"
     t = time.time()
     run_cli(["zip", lr, "-o", zl, "--device", "cuda", "-q"])
@@ -934,6 +1054,210 @@ def phase_cfg5x(tmp, smi, files, small_mib=16, longread_mib=64,
     for p in (lr, zl, lr + ".out"):
         os.remove(p)
     return counts
+
+
+def _zip_unzip(src, z, out, dev="cuda", extra=()):
+    """`zip` then `unzip` on the card; returns (zip s, unzip s, zip
+    --show-time regions, unzip regions)."""
+    from genozip_tpu_torch.zip_pipeline import profiler
+    profiler.reset()
+    t = time.time()
+    run_cli(["zip", src, "-o", z, "--device", dev, "-q"] + list(extra))
+    tz = time.time() - t
+    zr = profiler.report()
+    profiler.reset()
+    t = time.time()
+    run_cli(["unzip", z, "-o", out, "--device", dev])
+    tu = time.time() - t
+    if not same_file(src, out):
+        raise SystemExit(f"unzip of {os.path.basename(src)} differs from "
+                         "the input")
+    return tz, tu, zr, profiler.report()
+
+
+def _cuda_equals_cpu(src, extra=()):
+    """`zip_cuda_cpu` of `src`, then `unzip` of the cuda archive, which must
+    give `src` back; launches counted from zero over the cuda zip and the
+    unzip. Returns (zip s, unzip s, archive bytes, launches); the cuda
+    archive stays at `src`.cuda.gxz."""
+    from genozip_tpu_torch.ops import rans_cuda
+    torch.cuda.synchronize()
+    rans_cuda.reset_launches()
+    zs, ts = zip_cuda_cpu([src], src, extra, os.path.basename(src))
+    t = time.time()
+    run_cli(["unzip", zs["cuda"], "-o", src + ".out", "--device", "cuda"])
+    tu = time.time() - t
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    if not same_file(src, src + ".out"):
+        raise SystemExit(f"unzip of {os.path.basename(src)} differs from "
+                         "the input")
+    for p in (zs["cpu"], src + ".out"):
+        os.remove(p)
+    return ts["cuda"], tu, os.path.getsize(zs["cuda"]), counts
+
+
+def _vcf_rows(path):
+    """(header bytes, data lines) of a VCF file."""
+    with open(path, "rb") as f:
+        text = f.read()
+    hdr_len = text.index(b"\n#CHROM") + 1
+    hdr_len = text.index(b"\n", hdr_len) + 1
+    return text[:hdr_len], text[hdr_len:].splitlines(keepends=True)
+
+
+def phase_cfg1(tmp, smi, vcf_mib=CFG1_MIB, small_mib=SMALL_MIB,
+               genome_bp=CHR20_BP, ref_bp=CFG1_REF_BP):
+    """Phase 9: cfg1 (a cohort's VCF) at full width, then FASTA (cfg2),
+    GFF3, BED, 23andMe, LOCS and generic files, and `cat --vcf`. Returns the
+    launch counts of the cfg1 run (zip + unzip + cat) and of the FASTA run
+    (zip + unzip)."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.piz_pipeline import PizReader
+    from genozip_tpu_torch.ref.refstore import load_ref_file, make_reference
+    from genozip_tpu_torch.translate import VCF_ME23_HEADER, me23_vb_to_vcf
+
+    # the cfg1 full run, at --vblock 16: at the datatype's default VB size
+    # (6 MiB for 64 samples and more) no rANS payload reaches the 256 KiB at
+    # which a stream goes to the card
+    write_inputs("cfg1", tmp, vcf_mib=vcf_mib, small_mib=small_mib,
+                 ref_bp=ref_bp)
+    vcf = os.path.join(tmp, "cfg1.vcf")
+    size = os.path.getsize(vcf)
+    hdr, rows = _vcf_rows(vcf)
+    samples = hdr.rsplit(b"\n#CHROM", 1)[1].count(b"\t") - 8
+    log(f"cfg1: a {size} byte VCF ({len(rows)} rows of {samples} samples)")
+    z, out = vcf + ".gxz", vcf + ".out"
+    torch.cuda.synchronize()
+    rans_cuda.reset_launches()
+    tz, tu, zip_regions, unzip_regions = _zip_unzip(
+        vcf, z, out, extra=["--vblock", "16"])
+    os.remove(out)
+    ls = run_cli(["ls", z], True).decode()
+    head = run_cli(["cat", z, "--head", "1000", "--device", "cuda"], True)
+    pos = [int(r.split(b"\t", 2)[1]) for r in rows]
+    a, b = pos[len(pos) // 3], pos[len(pos) // 3 + 2000]
+    cnt = run_cli(["cat", z, "-r", f"chr1:{a}-{b}", "--count", "--device",
+                   "cuda"], True)
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    want = sum(1 for p in pos if a <= p <= b)
+    if head != hdr + b"".join(rows[:1000]):
+        raise SystemExit("cfg1: cat --head 1000 differs from the input")
+    if cnt != b"%d\n" % want:
+        raise SystemExit(f"cfg1: -r chr1:{a}-{b} --count gave {cnt!r}, want "
+                         f"{want}")
+    if str(size) not in ls.replace(",", ""):
+        raise SystemExit(f"cfg1: ls does not show {size} bytes:\n{ls}")
+    zsize = os.path.getsize(z)
+    log(f"cfg1: zip --vblock 16 {size / 1e6 / tz:.2f} MB/s ({tz:.1f} s), "
+        f"unzip {size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio "
+        f"{size / zsize:.3f} ({zsize} bytes), byte exact; cat --head 1000 "
+        f"and -r chr1:{a}-{b} --count = {want} equal the input; on {smi}")
+    log("cfg1: zip --show-time regions:\n" + zip_regions)
+    log("cfg1: unzip --show-time regions:\n" + unzip_regions)
+    log("cfg1: ls", ls.strip().splitlines()[-1])
+    log(f"cfg1: launches over zip + unzip + cat {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"cfg1: kernels never launched: {missing}")
+    del rows, pos
+    for p in (vcf, z):
+        os.remove(p)
+
+    # 16 MiB of cfg1: cuda == cpu at --vblock 16, then the default VB size
+    v16 = os.path.join(tmp, "cfg1_16.vcf")
+    tz, tu, zsize, c16 = _cuda_equals_cpu(v16, ["--vblock", "16"])
+    log(f"cfg1: {os.path.getsize(v16)} bytes at --vblock 16: archives equal "
+        f"from cuda and cpu ({zsize} bytes), zip {tz:.1f} s, unzip "
+        f"{tu:.1f} s; launches {c16}")
+    rans_cuda.reset_launches()
+    tz, tu, _, _ = _zip_unzip(v16, v16 + ".d.gxz", v16 + ".out")
+    torch.cuda.synchronize()
+    log(f"cfg1: at the default VB size: zip {tz:.1f} s, unzip {tu:.1f} s, "
+        f"launches {dict(rans_cuda.launches)}")
+    for p in (v16, v16 + ".cuda.gxz", v16 + ".d.gxz", v16 + ".out"):
+        os.remove(p)
+
+    # REF against a genome whose contig is chr1 (the VCF says 1)
+    g = chr1_genome(ref_bp)
+    fa, ref = os.path.join(tmp, "chr1.fa"), os.path.join(tmp, "chr1.ref.gxz")
+    synth.write_fasta(fa, g, names=[b"chr1"])
+    # VCF REF and cat --vcf read the genome only, not the refhash: a 2^16
+    # slot one keeps the reference's build and load short
+    make_reference(fa, ref, hash_bits=16)
+    os.remove(fa)
+    vr = os.path.join(tmp, "cfg1_ref.vcf")
+    for opt in ("--reference", "--REFERENCE"):
+        zr = vr + ".gxz"
+        t = time.time()
+        extra = ["--reference", ref] + (["--REFERENCE"] if opt ==
+                                        "--REFERENCE" else [])
+        run_cli(["zip", vr, "-o", zr, "--vblock", "16", "--device", "cuda",
+                 "-q"] + extra)
+        tz = time.time() - t
+        un = ["--reference", ref] if opt == "--reference" else []
+        run_cli(["unzip", zr, "-o", vr + ".out", "--device", "cuda"] + un)
+        if not same_file(vr, vr + ".out"):
+            raise SystemExit(f"cfg1: {opt} archive does not unzip to the "
+                             "input")
+        log(f"cfg1: zip {opt} {tz:.1f} s, {os.path.getsize(zr)} bytes; unzip"
+            f" {'with' if un else 'without'} the reference byte exact")
+    for p in (vr, vr + ".gxz", vr + ".out"):
+        os.remove(p)
+
+    # cfg2: phase 6's 64 Mbp FASTA as a file to compress
+    fa64 = os.path.join(tmp, "chr20like.fa")
+    if not os.path.exists(fa64):
+        synth.write_fasta(fa64, synth.genome(np.random.default_rng(20),
+                                             genome_bp))
+    size = os.path.getsize(fa64)
+    tz, tu, zsize, counts2 = _cuda_equals_cpu(fa64, ["--vblock", "16"])
+    log(f"cfg2: FASTA of {size} bytes at --vblock 16: zip "
+        f"{size / 1e6 / tz:.2f} MB/s ({tz:.1f} s), unzip "
+        f"{size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio {size / zsize:.3f}; "
+        f"archives equal from cuda and cpu; unzip byte exact; on {smi}")
+    log(f"cfg2: launches over zip + unzip {counts2}")
+    if not (counts2["rans_encode_o0"] and counts2["rans_decode_o0"]):
+        raise SystemExit("cfg2: the packed SEQ never went to the card")
+    for p in (fa64, fa64 + ".cuda.gxz"):
+        os.remove(p)
+
+    # GFF3, BED, 23andMe, LOCS and generic, 16 MiB each
+    for dt, name, _, extra in OTHER_DATATYPES:
+        src = os.path.join(tmp, name)
+        size = os.path.getsize(src)
+        tz, tu, zsize, c = _cuda_equals_cpu(src, extra)
+        pr = PizReader(src + ".cuda.gxz")
+        got = pr.file_hdr["dt"]
+        pr.close()
+        if got != dt:
+            raise SystemExit(f"{name}: zipped as {got}, not {dt}")
+        log(f"{dt}: {size} bytes, zip {size / 1e6 / tz:.2f} MB/s, unzip "
+            f"{size / 1e6 / tu:.2f} MB/s, ratio {size / zsize:.3f}; archives "
+            f"equal from cuda and cpu; unzip byte exact; launches {c}")
+        if dt != "me23":
+            os.remove(src)
+            os.remove(src + ".cuda.gxz")
+
+    # cat --vcf of the 23andMe archive against the chr1 reference
+    m = os.path.join(tmp, "genome_23andme.txt")
+    t = time.time()
+    got = run_cli(["cat", m + ".cuda.gxz", "--vcf", "--reference", ref,
+                   "--device", "cuda"], True)
+    tcat = time.time() - t
+    with open(m, "rb") as f:
+        want = VCF_ME23_HEADER + me23_vb_to_vcf(f.read(), load_ref_file(ref))
+    if got != want:
+        raise SystemExit("cat --vcf differs from me23_vb_to_vcf of the "
+                         "generator's text")
+    nrec = want.count(b"\n") - VCF_ME23_HEADER.count(b"\n")
+    log(f"cat --vcf: {nrec} VCF records, {len(want)} bytes in {tcat:.1f} s, "
+        f"equal to me23_vb_to_vcf of the input")
+    for p in (m, m + ".cuda.gxz", ref):
+        os.remove(p)
+    return counts, counts2
 
 
 def slot_to_symbol(freq):
@@ -1253,7 +1577,8 @@ def ab_cfg3(parent, change, smi):
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
-PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5", "cfg5x")
+PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5", "cfg5x",
+          "cfg1")
 
 
 def main(argv=None):
@@ -1307,21 +1632,30 @@ def main(argv=None):
 
     rng = np.random.default_rng(2024)
     meas, counts3, counts4, counts5, counts8 = {}, None, None, None, None
-    if "kernels" in phases:                         # 2
-        meas.update(timed("kernels", phase_kernels, rng))
-    if "micro" in phases:                           # 2b
-        timed("micro", phase_micro, np.random.default_rng(7), smi)
-    with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp:
-        if "cfg3" in phases:
-            counts3 = timed("cfg3", phase_cfg3, tmp, smi)      # 3 and 4
+    counts1 = counts2 = None
+    with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp, \
+            contextlib.ExitStack() as stack:
+        inputs = InputWriter(tmp, phases)
+        stack.callback(inputs.stop)
+        if "kernels" in phases:                         # 2
+            meas.update(timed("kernels", phase_kernels, rng))
+        if "micro" in phases:                           # 2b
+            timed("micro", phase_micro, np.random.default_rng(7), smi)
         if "entry" in phases:
             meas.update(timed("entry", phase_entry, rng))      # 5
+        t = time.time()
+        inputs.wait()
+        log(f"inputs of phases 7-9 ready; waited {time.time() - t:.1f} s")
+        if "cfg3" in phases:
+            counts3 = timed("cfg3", phase_cfg3, tmp, smi)      # 3 and 4
         if "cfg4" in phases:
             counts4 = timed("cfg4", phase_cfg4, tmp, smi)      # 6
         if "cfg5" in phases:
             counts5, files5 = timed("cfg5", phase_cfg5, tmp, smi)  # 7
         if "cfg5x" in phases:
             counts8 = timed("cfg5x", phase_cfg5x, tmp, smi, files5)  # 8
+        if "cfg1" in phases:
+            counts1, counts2 = timed("cfg1", phase_cfg1, tmp, smi)   # 9
     log(f"phases {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", total {time.time() - t_start:.1f} s since setup")
     if "jax" in sys.modules or any(
@@ -1346,7 +1680,9 @@ def main(argv=None):
                      "shape": label, "bytes": nbytes,
                      "launches_cfg3": counts3[name],
                      "launches_cfg5": counts5[name],
-                     "launches_deep": counts8[name]})
+                     "launches_deep": counts8[name],
+                     "launches_cfg1": counts1[name],
+                     "launches_cfg2": counts2[name]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """genozip_tpu_torch: the PyTorch/CUDA port of genozip_tpu.
 
-FASTQ zip/unzip/cat/ls, single-end or paired, with or without a reference
-genome (zip --make-reference, --reference, --REFERENCE), with every rANS
-stream of 256 KiB or more coded by the hand-written CUDA kernels in
-csrc/rans.cu. The package imports torch and never jax; archives and
+zip/unzip/cat/ls of FASTQ (single-end or paired), SAM, BAM and VCF, with
+or without a reference genome (zip --make-reference, --reference,
+--REFERENCE), and of FASTA, GFF, BED, 23andMe, LOCS and generic files, with
+every rANS stream of 256 KiB or more coded by the hand-written CUDA kernels
+in csrc/rans.cu. The package imports torch and never jax; archives and
 reference files are byte-identical to genozip_tpu's.
 """

@@ -1,8 +1,10 @@
-"""CLI: zip / unzip / cat / ls for FASTQ (single-end or paired), SAM and BAM,
-with or without a reference genome, `zip --make-reference` for FASTA, `zip
+"""CLI: zip / unzip / cat / ls for FASTQ (single-end or paired), SAM, BAM and
+VCF, with or without a reference genome, and for FASTA, GFF, BED, 23andMe,
+LOCS and generic files (`zip --input-type` names the datatype where the
+file's name and first bytes do not); `zip --make-reference` for FASTA, `zip
 --deep` (a BAM with its FASTQs) and `zip --bamass`; `cat` translates SAM
-and BAM archives (--sam, --bam [--index], --cram) and counts their reads
-(--coverage, --idxstats).
+and BAM archives (--sam, --bam [--index], --cram), counts their reads
+(--coverage, --idxstats), and translates a 23andMe archive to VCF (--vcf).
 
 Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
 where the rANS kernels run: `cuda` (default; raises when no GPU is present)
@@ -16,7 +18,7 @@ import argparse
 import os
 
 # cat options of genozip_tpu whose paths this package has not ported yet
-_CAT_NOT_PORTED = ("vcf", "password")
+_CAT_NOT_PORTED = ("password",)
 
 
 def _device_arg(p):
@@ -36,6 +38,10 @@ def build_parser():
     z.add_argument("--pair", action="store_true",
                    help="co-compress paired R1/R2 FASTQ files")
     z.add_argument("-o", "--output")
+    z.add_argument("--input-type", dest="dt", default=None,
+                   help="the input's datatype (fastq, sam, bam, vcf, fasta, "
+                        "gff, bed, me23, locs, generic) where its name and "
+                        "first bytes do not say")
     z.add_argument("--vblock", type=int, default=None, help="VB size in MB")
     z.add_argument("--stats", action="store_true")
     z.add_argument("--show-time", action="store_true",
@@ -124,7 +130,9 @@ def build_parser():
     c.add_argument("--idxstats", action="store_true",
                    help="samtools-idxstats-style read counts")
     c.add_argument("--reference", default=None)
-    c.add_argument("--vcf", action="store_true", help=argparse.SUPPRESS)
+    c.add_argument("--vcf", action="store_true",
+                   help="translate a 23andMe archive to VCF (needs "
+                        "--reference)")
     c.add_argument("--password", default=None, help=argparse.SUPPRESS)
     _device_arg(c)
 
@@ -211,7 +219,7 @@ def _zip(args):
         zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
                  threads=args.threads, reference=args.reference,
                  store_ref=args.store_ref, optimize=args.optimize,
-                 bamass=args.bamass)
+                 bamass=args.bamass, dt_name=args.dt)
     if args.test:
         from .piz_pipeline import piz_file
         piz_file(out, None, reference=args.reference)

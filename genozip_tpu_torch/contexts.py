@@ -303,3 +303,35 @@ def narrow_int(vals: np.ndarray):
         if ii.min <= lo and hi <= ii.max:
             return vals.astype(dt)
     return vals.astype(np.int64)
+
+
+def est_ctxs_size(ctxs: dict) -> int:
+    """Compressed-size estimate of a candidate VBCtx set, for the trial-both
+    seg choices (VCF ID, CSQ and int-list layouts): payloads are compressed
+    for real with the codec the category would get (a strided sample above
+    4 MB), so the comparison tracks what the write path will do."""
+    from .codecs import compress
+    tot = 0
+    for c in ctxs.values():
+        parts = []
+        if c.b250 is not None:
+            parts.append((narrow_int(c.b250).tobytes(), "b250"))
+        if c.vb_words is not None:
+            # dict words merge into the global dict, whose similar words
+            # carry LZ redundancy: estimate with the "text" assignment
+            parts.append((c.vb_words.data.tobytes(), "text"))
+        if c.local is not None:
+            arr = narrow_int(c.local) if c.mode == MODE_NUM else c.local
+            parts.append((arr.tobytes(),
+                          "int" if c.mode == MODE_NUM else c.cat))
+        for p, cat in parts:
+            n = len(p)
+            if n < 64:
+                tot += n + 8
+                continue
+            if n > (4 << 20):
+                p = codec_assign._strided_sample(np.frombuffer(p, np.uint8),
+                                                 1 << 20)
+            codec = codec_assign.assign_best(p, cat)
+            tot += int(len(compress(p, codec)) * (n / len(p))) + 8
+    return tot

@@ -1,8 +1,9 @@
-"""Datatype plugin registry: FASTQ (single-end or paired), SAM and BAM, with
-or without a reference genome.
+"""Datatype plugin registry: FASTQ (single-end or paired), SAM, BAM and VCF,
+with or without a reference genome, and FASTA, GFF, BED, 23andMe, LOCS and
+generic files.
 
-Counterpart of genozip_tpu/datatypes/__init__.py. Other datatypes are
-detected as the reference detects them and refused with "not yet ported".
+Counterpart of genozip_tpu/datatypes/__init__.py, with every datatype of
+genozip_tpu registered.
 Reference parity: src/data_types.h:50-161 DataTypeProperties vtable (~45
 callbacks per datatype) — reduced here to the callbacks the engine
 actually inverts control through: VB boundary alignment, txt-header split,
@@ -129,11 +130,11 @@ def register(cls):
 
 
 def get(name: str) -> type:
-    from . import fastq, sam, bam  # noqa: F401
+    from . import (bam, bed, fasta, fastq, generic, gff, locs,  # noqa: F401
+                   me23, sam, vcf)
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"datatype {name!r}: not yet ported to genozip_tpu_torch "
-            "(FASTQ, SAM and BAM only)")
+        raise ValueError(f"unknown datatype {name!r} (known: "
+                         f"{', '.join(sorted(_REGISTRY))})")
     return _REGISTRY[name]
 
 

@@ -1,13 +1,14 @@
 """`cat`: an archive's text, filtered or translated.
 
-Filters, for FASTQ and SAM archives: --head/--tail/--lines/--downsample/
---one-vb (positional), --grep/--qnames/--bases (per record), -r/--regions
-(whole VBs by the random-access index, then lines), --header-only,
---seq-only/--qual-only, --count, and for paired archives --r1/--r2 (one
-component) and --interleave (records alternating R1/R2). Translations:
---sam (BAM archive to SAM text), --bam [--index] (SAM archive to BGZF BAM
-and its BAI), --cram (through `samtools view -C`), --coverage and
---idxstats (coverage.py).
+Filters, for the archives of every text datatype: --head/--tail/--lines/
+--downsample/--one-vb (positional), --grep/--qnames/--bases (per record),
+-r/--regions (whole VBs by the random-access index, then lines; SAM and
+VCF), --header-only, --count, for FASTQ and SAM --seq-only/--qual-only, and
+for paired archives --r1/--r2 (one component) and --interleave (records
+alternating R1/R2). Translations: --sam (BAM archive to SAM text), --bam
+[--index] (SAM archive to BGZF BAM and its BAI), --cram (through `samtools
+view -C`), --coverage and --idxstats (coverage.py), --vcf (23andMe archive
+to VCF, against a reference).
 
 Counterpart of genozip_tpu/filters.py (reference src/writer.c:544-663).
 Positional filters without a per-record predicate are plan edits
@@ -22,8 +23,8 @@ the others are applied by the plan executor. Where the port differs:
 - F10: a BAM archive's records are binary, and genozip_tpu cuts them at
   newline bytes for its per-record filters, so the port refuses those
   filters on a BAM archive; genozip_tpu's translations (--sam, --bam,
-  --coverage, --idxstats) ignore every filter but --no-header, so the port
-  refuses a filter combined with one.
+  --coverage, --idxstats, --vcf) ignore every filter but --no-header, so
+  the port refuses a filter combined with one.
 - F12: -r/--regions on a gencomp archive reconstructs every MAIN VB, and
   so keeps the PRIM/DEPN lines in the regions that genozip_tpu drops with
   the VBs it skips.
@@ -37,8 +38,9 @@ import numpy as np
 
 from . import writer_plan as wp
 from .piz_pipeline import PizReader, workers
-from .translate import (IndexingBgzfWriter, bam_header_to_sam, bam_vb_to_sam,
-                        build_bai, sam_header_to_bam, sam_vb_to_bam)
+from .translate import (VCF_ME23_HEADER, IndexingBgzfWriter,
+                        bam_header_to_sam, bam_vb_to_sam, build_bai,
+                        me23_vb_to_vcf, sam_header_to_bam, sam_vb_to_bam)
 from .utils import profiler
 
 # per-record and positional filters, in the order the refusals name them
@@ -78,6 +80,8 @@ def cat(args):
             cat_translated_sam(args, out)
         elif args.bam:
             cat_translated_bam(args, out, args.output)
+        elif args.vcf:
+            cat_translated_vcf(args, out)
         else:
             cat_filtered(args, out)
     finally:
@@ -214,6 +218,8 @@ def _cat(pr, args, out):
     if proj is not None:
         # one SEQ or QUAL line per record: FASTQ lines 1 and 3, SAM
         # columns 9 and 10
+        if dt_name not in ("fastq", "sam"):
+            raise ValueError(f"--{proj}-only: unsupported for {dt_name}")
         if dt_name == "fastq":
             k = {"seq": 1, "qual": 3}[proj]
 
@@ -246,13 +252,16 @@ def _rec_qname(rec: bytes, dt_name: str) -> bytes:
 
 
 def _rec_seq(rec: bytes, dt_name: str) -> bytes:
-    """The SEQ of one reconstructed record (for --bases)."""
+    """The SEQ of one reconstructed record (for --bases): FASTQ line 1, SAM
+    column 9, the whole line of other datatypes."""
     if dt_name == "fastq":
         p1 = rec.find(b"\n")
         p2 = rec.find(b"\n", p1 + 1)
         return rec[p1 + 1:p2 if p2 >= 0 else len(rec)]
-    f = rec.split(b"\t", 10)
-    return f[9] if len(f) > 9 else b""
+    if dt_name == "sam":
+        f = rec.split(b"\t", 10)
+        return f[9] if len(f) > 9 else b""
+    return rec.rstrip(b"\n")
 
 
 def main_vbs(pr):
@@ -314,6 +323,27 @@ def cat_translated_bam(args, out, out_path):
                             vbeg[m], vend[m])
         with open(out_path + ".bai", "wb") as f:
             f.write(bai)
+
+
+def cat_translated_vcf(args, out):
+    """23andMe archive -> VCF (reference parity: genocat --vcf on ME23,
+    src/data_types.h:262); the REF base comes from the reference genome."""
+    refuse_filters(args, "--vcf")
+    pr = PizReader(args.input, getattr(args, "reference", None))
+    try:
+        if pr.file_hdr["dt"] != "me23":
+            raise ValueError("--vcf translation needs a 23andMe archive")
+        ref = pr.dt.ref
+        if ref is None:
+            raise ValueError("--vcf translation needs --reference")
+        if not getattr(args, "no_header", False):
+            out.write(VCF_ME23_HEADER)
+        for buf in main_vbs(pr):
+            with profiler.timer("cat:me23-to-vcf"):
+                vcf = me23_vb_to_vcf(buf, ref)
+            out.write(vcf)
+    finally:
+        pr.close()
 
 
 def cat_translated_cram(args, out_path):

@@ -1,4 +1,4 @@
-"""PIZ pipeline: reconstruct the FASTQ, SAM or BAM file(s) of a GXZ archive.
+"""PIZ pipeline: reconstruct the file(s) of a GXZ archive, of any datatype.
 
 Counterpart of genozip_tpu/piz_pipeline.py: read the global area (dicts)
 once, then per VB read and uncompress the context sections, reconstruct with

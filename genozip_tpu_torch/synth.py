@@ -1,4 +1,5 @@
-"""Synthetic inputs in the shape of bench configs cfg3, cfg4 and cfg5.
+"""Synthetic inputs in the shape of bench configs cfg1-cfg5 and of the other
+datatypes.
 
 cfg3 (`write_fastq`): single-end FASTQ of 150 bp reads sampled off a
 repeat-family genome, 0.3% substitution errors, half of them
@@ -26,14 +27,27 @@ reads off a genome, CIGARs of 500-3000 bp matches with 1-7 bp insertions
 and deletions between them, 2% substitutions, ONT-like quality, minimap2's
 NM/ms/AS/nn/tp/cm/s1/s2/de/rl tags.
 
+cfg1 (`write_vcf`, bench.py's `gen_vcf`): a cohort's joint-called VCF, 200
+samples of `GT:AD:DP:GQ:PL` (Hardy-Weinberg genotypes, Poisson depths, PL
+and GQ from them), dbSNP IDs, AC/AN/AF with GATK's annotator soup and 1-3
+VEP CSQ transcripts per row; REF from a genome where one is given. cfg2 is
+`write_fasta` of a genome, zipped as a file. `write_gff` (Ensembl-style
+genes, transcripts, exons and CDSs with ID/Parent attributes), `write_bed`
+(BED6 peaks), `write_me23` (a 23andMe raw-data file), `write_locs`
+(Illumina cluster positions) and `write_generic` (a server log) write the
+other datatypes.
+
 A vectorized re-implementation of bench.py's generators (its `_genome`,
 `_qual_rows`, `gen_fastq`, `gen_fasta`, `gen_paired_fastq`, `gen_bam`,
-`gen_longread_sam`), made from a numpy seed, for the port's tests and chip_smoke.py. The bytes differ
-from bench.py's; the shapes are its.
+`gen_longread_sam`, `gen_vcf`), made from a numpy seed, for the port's tests
+and chip_smoke.py. The bytes differ from bench.py's; the shapes are its.
 """
 
 import contextlib
+import functools
 import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -74,9 +88,15 @@ def genome(rng, n: int = 4 << 20) -> np.ndarray:
 
 def qual_rows(rng, n: int, rl: int) -> np.ndarray:
     """Illumina-RTA3-style 4-bin quality with a positional ramp."""
+    return _qual_bins(rng.normal(0, 3.0, (n, rl)))
+
+
+def _qual_bins(noise: np.ndarray) -> np.ndarray:
+    """`qual_rows` of its (n, rl) normal draws."""
+    rl = noise.shape[1]
     pos = np.arange(rl)
     base = 36.0 - 8.0 * (pos / rl) ** 2 - 2.0 * (pos < 3)
-    q = base[None, :] + rng.normal(0, 3.0, (n, rl))
+    q = base[None, :] + noise
     bins = np.array([2, 12, 23, 37])
     idx = np.abs(q[:, :, None] - bins[None, None, :]).argmin(axis=2)
     return (bins[idx] + 33).astype(np.uint8)
@@ -128,12 +148,17 @@ def write_fastq(path: str, nbytes: int, seed: int = 2024,
 
 def _reads(rng, g: np.ndarray, starts: np.ndarray, rl: int, err: float = 0.003):
     """(n, rl) reads off genome `g` at `starts`, with substitution errors."""
-    n = starts.shape[0]
     mat = g[starts[:, None] + np.arange(rl)[None, :]]
-    nerr = rng.binomial(n * rl, err)
-    mat[rng.integers(0, n, nerr), rng.integers(0, rl, nerr)] = \
-        _BASES[rng.integers(0, 4, nerr)]
+    rows, cols, bases = _read_errors(rng, starts.shape[0], rl, err)
+    mat[rows, cols] = bases
     return mat
+
+
+def _read_errors(rng, n: int, rl: int, err: float = 0.003):
+    """The (rows, columns, bases) of `_reads`' substitutions."""
+    nerr = rng.binomial(n * rl, err)
+    bases = _BASES[rng.integers(0, 4, nerr)]
+    return rng.integers(0, n, nerr), rng.integers(0, rl, nerr), bases
 
 
 def write_fasta(path: str, g: np.ndarray, names=None) -> int:
@@ -163,6 +188,7 @@ def write_fasta(path: str, g: np.ndarray, names=None) -> int:
 _CFG5_GENOME = 32 << 20
 _CFG5_WINDOW = 2_000_000
 _RL = 150
+_GEN_THREADS = min(8, os.cpu_count() or 1)   # cfg5 windows made at once
 _HALF = _RL // 2
 # record kinds: multi-mapper primary / its secondary, split-read primary /
 # its supplementary, proper pair
@@ -247,19 +273,28 @@ def _reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
     return out
 
 
-def _cfg5_window(rng, g, chrom: bytes, refid: int, lo: int, hi: int,
-                 rid0: int, n: int = 60000):
-    """One window of cfg5 records as (SAM text lines, BAM records), both
-    as bytes, the same records in the same order."""
-    rl = _RL
-    G = g.shape[0]
+def _cfg5_draws(rng, G: int, lo: int, hi: int, n: int):
+    """The random draws of one window of `n` reads in [lo, hi) of a
+    genome of `G` bases, in the order they are taken from `rng`."""
     poss = np.sort(rng.integers(lo, hi, n))
-    ne = rng.binomial(rl, 0.003, n)
-    quals = qual_rows(rng, n, rl)
-    seqs = _reads(rng, g, poss, rl)
-    kinds = rng.random(n)
-    p2 = rng.integers(0, G - rl, n)
-    xs_gap = rng.integers(5, 30, n)
+    ne = rng.binomial(_RL, 0.003, n)
+    noise = rng.normal(0, 3.0, (n, _RL))
+    errs = _read_errors(rng, n, _RL)
+    return (poss, ne, noise, errs, rng.random(n),
+            rng.integers(0, G - _RL, n), rng.integers(5, 30, n))
+
+
+def _cfg5_window(draws, g, chrom: bytes, refid: int, rid0: int, fq=None):
+    """One window of cfg5 records from its `_cfg5_draws` as (SAM text
+    lines, BAM records, and the (R1, R2) FASTQ of its primaries from
+    `deep_fastq` with draws `fq`, else None), all bytes, the same records
+    in the same order."""
+    rl = _RL
+    poss, ne, noise, (er, ec, eb), kinds, p2, xs_gap = draws
+    n = poss.shape[0]
+    quals = _qual_bins(noise)
+    seqs = g[poss[:, None] + np.arange(rl)[None, :]]
+    seqs[er, ec] = eb
     multi, split = kinds < 0.08, (kinds >= 0.08) & (kinds < 0.12)
     nsub = 1 + (multi | split)
     j = np.repeat(np.arange(n), nsub)
@@ -361,14 +396,22 @@ def _cfg5_window(rng, g, chrom: bytes, refid: int, lo: int, hi: int,
     recs = ragged.interleave(
         [Col.from_fixed(fixed.view(np.uint8).reshape(R, -1)), qname, cig_b,
          seq_nib, qual_b, aux_b], sep_after=[None, b"\x00"] + [None] * 4)
-    return text.data.tobytes(), recs.data.tobytes()
+    text = text.data.tobytes()
+    return (text, recs.data.tobytes(),
+            deep_fastq(text, *fq) if fq is not None else None)
 
 
-def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int):
-    """(SAM header, per window (SAM text, BAM records)), with bench.py's
-    contig count for a file of `nbytes`. A window holds `window_reads`
-    reads over window_reads / 60000 * 2 Mbp, bench.py's coverage."""
+def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int, ahead,
+                  fastq: bool = False):
+    """(SAM header, per window (SAM text, BAM records, (R1, R2) FASTQ of its
+    primaries or None)), with bench.py's contig count for a file of
+    `nbytes`. A window holds `window_reads` reads over window_reads / 60000
+    * 2 Mbp, bench.py's coverage. The draws are taken in window order from
+    one generator (and the FASTQ's from another); the rest of each window
+    is made on a thread pool, at most `ahead()` windows ahead of the
+    consumer."""
     rng = np.random.default_rng(seed)
+    frng = np.random.default_rng(seed + 2)
     G = g.shape[0]
     names = cfg5_contigs(nbytes, G)
     hdr = b"@HD\tVN:1.6\tSO:coordinate\n" + b"".join(
@@ -382,11 +425,41 @@ def _cfg5_windows(g, nbytes: int, seed: int, window_reads: int):
             pos = 1
             while pos < G - 2 * _RL:
                 hi = min(pos + span, G - _RL)
-                yield _cfg5_window(rng, g, names[c], c, pos, hi,
-                                   rid, window_reads)
+                d = _cfg5_draws(rng, G, pos, hi, window_reads)
+                fq = _deep_draws(frng, window_reads) if fastq else None
+                yield functools.partial(_cfg5_window, d, g, names[c], c, rid,
+                                        fq)
                 rid += window_reads
                 pos = hi
-    return hdr, windows()
+    return hdr, _ordered_pool(windows(), ahead)
+
+
+def _ordered_pool(tasks, ahead):
+    """The results of the callables `tasks` yields, in order, made on a
+    thread pool (numpy lets go of the GIL), with at most `ahead()` (1 or
+    more) started and not yet taken. `tasks` is advanced on the caller's
+    thread."""
+    pool = ThreadPoolExecutor(max_workers=_GEN_THREADS)
+    todo = deque()
+    try:
+        for task in tasks:
+            todo.append(pool.submit(task))
+            if len(todo) >= max(1, ahead()):
+                yield todo.popleft().result()
+        while todo:
+            yield todo.popleft().result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _ahead(f, nbytes: int, done: list, per0: int):
+    """How many windows a writer at `f`, which has written `done[0]`
+    windows, still needs to reach `nbytes`, from its bytes per window so
+    far (`per0` before the first)."""
+    def ahead():
+        per = max(1, f.tell() // done[0]) if done[0] else per0
+        return int(min(_GEN_THREADS, -(-(nbytes - f.tell()) // per)))
+    return ahead
 
 
 def write_bam(path: str, nbytes: int, seed: int = 2024,
@@ -400,25 +473,29 @@ def write_bam(path: str, nbytes: int, seed: int = 2024,
     from .translate import sam_header_to_bam
     from .utils.bgzf import BgzfWriter
     g = cfg5_genome(genome_len, seed)
-    hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
-    frng = np.random.default_rng(seed + 2)
     with contextlib.ExitStack() as stack:
         f = stack.enter_context(open(path, "wb"))
+        done = [0]
+        hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads,
+                                  _ahead(f, nbytes, done, 64 * window_reads),
+                                  fastq=bool(fastq_paths))
+        stack.callback(wins.close)
         twins = [stack.enter_context(open(p, "wb"))
                  for p in [sam_path] + list(fastq_paths or []) if p]
         if sam_path:
             twins[0].write(hdr)
         w = BgzfWriter(f, 6)
         w.write(sam_header_to_bam(hdr)[0])
-        for text, recs in wins:
+        for text, recs, fq in wins:
             if f.tell() >= nbytes:
                 break
             w.write(recs)
             if sam_path:
                 twins[0].write(text)
             if fastq_paths:
-                for t, fq in zip(twins[-2:], deep_fastq(text, frng)):
-                    t.write(fq)
+                for t, b in zip(twins[-2:], fq):
+                    t.write(b)
+            done[0] += 1
         w.close()
     return os.path.getsize(path)
 
@@ -434,14 +511,17 @@ def write_sam(path: str, nbytes: int, seed: int = 2024,
     from .datatypes.bam import bam_scan
     from .translate import sam_header_to_bam
     g = cfg5_genome(genome_len, seed)
-    hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads)
     with contextlib.ExitStack() as stack:
         f = stack.enter_context(open(path, "wb"))
+        done = [0]
+        hdr, wins = _cfg5_windows(g, nbytes, seed, window_reads,
+                                  _ahead(f, nbytes, done, 384 * window_reads))
+        stack.callback(wins.close)
         fb = stack.enter_context(open(bam_path, "wb")) if bam_path else None
         f.write(hdr)
         if fb:
             fb.write(sam_header_to_bam(hdr)[0])
-        for text, recs in wins:
+        for text, recs, _ in wins:
             room = nbytes - f.tell()
             if room <= 0:
                 break
@@ -453,15 +533,24 @@ def write_sam(path: str, nbytes: int, seed: int = 2024,
             f.write(text)
             if fb:
                 fb.write(recs)
+            done[0] += 1
         return f.tell()
 
 
-def deep_fastq(text: bytes, rng):
+def _deep_draws(rng, n: int):
+    """`deep_fastq`'s draws for `n` primaries: a uniform for each, and
+    one more for each whose first is below 0.1."""
+    u = rng.random(n)
+    return u, rng.random(int((u < 0.1).sum()))
+
+
+def deep_fastq(text: bytes, u: np.ndarray, v: np.ndarray):
     """(R1, R2) FASTQ bytes of the primary alignments (flag & 0x900 == 0,
     SEQ present) among cfg5 SAM lines `text`: each read in its sequencing
     orientation (reverse-complemented back, QUAL reversed, where flag & 16),
     R2 where flag & 128 and R1 otherwise, named `@QNAME 1:N:0:ATCACG` (2:
-    for R2). One read in ten has one base changed, so it differs from its
+    for R2). The reads whose `u` (one uniform a primary) is below 0.1 have
+    one base changed, at a column from `v`, so they differ from their
     alignment."""
     data = np.frombuffer(text, np.uint8)
     nl = np.nonzero(data == ord("\n"))[0]
@@ -480,8 +569,9 @@ def deep_fastq(text: bytes, rng):
     seq[rev] = np.take_along_axis(seq, idx, axis=1)[rev]
     qual[rev] = np.take_along_axis(qual, idx, axis=1)[rev]
     seq[rev] = packops.ACGT[packops.BASE2BIT[seq[rev]] ^ 3]
-    alter = np.nonzero(rng.random(n) < 0.1)[0]
-    col = (rng.random(alter.shape[0]) * lens[alter]).astype(np.int64)
+    assert u.shape[0] == n
+    alter = np.nonzero(u < 0.1)[0]
+    col = (v * lens[alter]).astype(np.int64)
     seq[alter, col] = packops.ACGT[(packops.BASE2BIT[seq[alter, col]] + 1) & 3]
     r2 = (flag & 128) != 0
     out = []
@@ -624,3 +714,274 @@ def write_longread_sam(path: str, nbytes: int, seed: int = 2024,
             f.write(text)
             pos, rid = int(starts[-1]), rid + starts.shape[0]
         return f.tell()
+
+
+# ---------------------------------------------------------------------------
+# cfg1: a cohort's joint-called VCF; and the tabular and other datatypes
+# ---------------------------------------------------------------------------
+
+_VCF_SAMPLES = 200
+_GENES = [b"GENE%04d" % i for i in range(700)]
+_CONS = [b"missense_variant", b"synonymous_variant", b"stop_gained",
+         b"intron_variant", b"3_prime_UTR_variant"]
+_AAS = [b"Ala", b"Val", b"Gly", b"Ser", b"Leu", b"Thr"]
+_GTS = np.frombuffer(b"0/00/11/1./.", np.uint8).reshape(4, 3)
+
+
+def vcf_header(samples: int = _VCF_SAMPLES, chrom: bytes = b"chr1") -> bytes:
+    """bench.py `gen_vcf`'s header: GATK FORMAT and INFO definitions and
+    VEP's CSQ, then the #CHROM line with `samples` sample names."""
+    return (b"##fileformat=VCFv4.2\n##contig=<ID=%s,length=100000000>\n"
+            b"##FORMAT=<ID=GT,Number=1,Type=String>\n"
+            b"##FORMAT=<ID=AD,Number=R,Type=Integer>\n"
+            b"##FORMAT=<ID=DP,Number=1,Type=Integer>\n"
+            b"##FORMAT=<ID=GQ,Number=1,Type=Integer>\n"
+            b"##FORMAT=<ID=PL,Number=G,Type=Integer>\n"
+            b"##INFO=<ID=AF,Number=A,Type=Float>\n"
+            b"##INFO=<ID=AC,Number=A,Type=Integer>\n"
+            b"##INFO=<ID=AN,Number=1,Type=Integer>\n"
+            b"##INFO=<ID=DP,Number=1,Type=Integer>\n"
+            b"##INFO=<ID=BaseQRankSum,Number=1,Type=Float>\n"
+            b"##INFO=<ID=ExcessHet,Number=1,Type=Float>\n"
+            b"##INFO=<ID=FS,Number=1,Type=Float>\n"
+            b"##INFO=<ID=MQ,Number=1,Type=Float>\n"
+            b"##INFO=<ID=MQRankSum,Number=1,Type=Float>\n"
+            b"##INFO=<ID=QD,Number=1,Type=Float>\n"
+            b"##INFO=<ID=ReadPosRankSum,Number=1,Type=Float>\n"
+            b"##INFO=<ID=SOR,Number=1,Type=Float>\n"
+            b'##INFO=<ID=CSQ,Number=.,Type=String,Description="VEP">\n'
+            b"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t" % chrom
+            + b"\t".join(b"S%04d" % i for i in range(samples)) + b"\n")
+
+
+def _vcf_cells(rng, af: np.ndarray, samples: int):
+    """The sample matrix of len(af) rows: `GT:AD:DP:GQ:PL` cells each
+    followed by a tab (row-major), the genotype codes (0/0, 0/1, 1/1, ./.)
+    and each row's summed depth."""
+    n = af.shape[0]
+    probs = np.stack([(1 - af) ** 2, 2 * af * (1 - af), af ** 2,
+                      np.full(n, 0.002)], axis=1)
+    cum = np.cumsum(probs / probs.sum(axis=1, keepdims=True), axis=1)
+    g = (rng.random((n, samples))[:, :, None] > cum[:, None, :3]).sum(-1)
+    d = rng.poisson(30, (n, samples))
+    aa = np.where(g == 1, d // 2, np.where(g == 2, d, 0))
+    adr = d - aa
+    pl = np.zeros((n, samples, 3), np.int64)
+    pl[g == 0] = np.stack([np.zeros_like(d), 3 * d, 30 + 3 * d], -1)[g == 0]
+    pl[g == 1] = np.stack([3 * aa, np.zeros_like(d), 3 * adr], -1)[g == 1]
+    pl[g == 2] = np.stack([30 + 3 * d, 3 * d, np.zeros_like(d)], -1)[g == 2]
+    spl = np.sort(pl, axis=-1)
+    gq = np.minimum(spl[..., 1] - spl[..., 0] + 2, 99)
+    cols = [Col.from_fixed(_GTS[g.ravel()])] + [
+        ragged.itoa(v.ravel()) for v in
+        (adr, aa, d, gq, pl[..., 0], pl[..., 1], pl[..., 2])]
+    cells = ragged.interleave(cols, sep_after=[b":", b",", b":", b":", b":",
+                                               b",", b",", b"\t"])
+    return cells, g, d.sum(axis=1)
+
+
+def write_vcf(path: str, nbytes: int, seed: int = 2024,
+              samples: int = _VCF_SAMPLES, block: int = 200,
+              chrom: bytes = b"chr1", genome: np.ndarray | None = None) -> int:
+    """Write at least `nbytes` of cfg1-shaped VCF (bench.py `gen_vcf`): a
+    cohort of `samples` samples with `GT:AD:DP:GQ:PL` cells (genotypes by
+    Hardy-Weinberg at a row's allele frequency plus 0.2% missing, depths
+    Poisson(30), AD split by genotype, PL and GQ from them), dbSNP-style
+    IDs, AC/AN/AF and GATK's annotator soup in INFO, and 1-3 VEP CSQ
+    transcripts per row, one variant every 50-3000 bp of `chrom`. REF is the
+    base of `genome` at POS where given, random otherwise. Returns the bytes
+    written."""
+    rng = np.random.default_rng(seed)
+    pos = 10000
+    with open(path, "wb") as f:
+        f.write(vcf_header(samples, chrom))
+        while f.tell() < nbytes:
+            n = block
+            posv = pos + np.cumsum(rng.integers(50, 3000, n))
+            pos = int(posv[-1])
+            refc = rng.integers(0, 4, n)
+            if genome is not None:
+                on = posv <= genome.shape[0]
+                refc[on] = packops.BASE2BIT[genome[posv[on] - 1]]
+            altc = (refc + rng.integers(1, 4, n)) % 4
+            af = rng.random(n) * 0.5
+            cells, g, dp = _vcf_cells(rng, af, samples)
+            # the last cell of a row ends it: its tab becomes the newline
+            ends = cells.offsets[samples::samples] - 1
+            cells.data[ends] = ord("\n")
+            smp = cells.data
+            row_off = cells.offsets[::samples]
+            miss = (g == 3).sum(axis=1)
+            an = 2 * (samples - miss)
+            ac = (g == 1).sum(axis=1) + 2 * (g == 2).sum(axis=1)
+            soup = rng.normal(size=(n, 7))
+            rows = []
+            for i in range(n):
+                p = int(posv[i])
+                ref, alt = bytes([_BASES[refc[i]]]), bytes([_BASES[altc[i]]])
+                trs = []
+                for _ in range(int(rng.integers(1, 4))):
+                    cdna = int(rng.integers(1, 9000))
+                    trs.append(b"|".join([
+                        alt, _CONS[int(rng.integers(0, 5))],
+                        _GENES[int(rng.integers(0, 700))],
+                        b"ENST%011d" % rng.integers(1, 3e5),
+                        b"c.%d%s>%s" % (cdna, ref, alt),
+                        b"p.%s%d%s" % (_AAS[int(rng.integers(0, 6))],
+                                       cdna // 3,
+                                       _AAS[int(rng.integers(0, 6))]),
+                        b"0.%04d" % rng.integers(0, 9999)]))
+                s = soup[i]
+                info = (b"AF=%.4f;AC=%d;AN=%d;BaseQRankSum=%.3f;"
+                        b"ExcessHet=%.4f;FS=%.3f;MQ=%.2f;MQRankSum=%.3f;"
+                        b"QD=%.2f;ReadPosRankSum=%.3f;SOR=%.3f;DP=%d;CSQ=%s"
+                        % (round(int(ac[i]) / max(int(an[i]), 1), 4),
+                           ac[i], an[i], s[0], 3.0103, abs(2 + 2 * s[1]),
+                           60 - abs(s[2]), 0.5 * s[3], abs(15 + 5 * s[4]),
+                           0.7 * s[5], abs(0.7 + 0.3 * s[6]), dp[i],
+                           b",".join(trs)))
+                rows.append(b"%s\t%d\trs%d\t%s\t%s\t%d\tPASS\t%s\t"
+                            b"GT:AD:DP:GQ:PL\t" % (chrom, p, p, ref, alt,
+                                                   30 + p % 60, info))
+                rows.append(smp[row_off[i]:row_off[i + 1]].tobytes())
+            f.write(b"".join(rows))
+        return f.tell()
+
+
+def _write_blocks(path: str, nbytes: int, head: bytes, block_fn) -> int:
+    """Write `head`, then the blocks `block_fn()` returns until at least
+    `nbytes` are written. Returns the bytes written."""
+    with open(path, "wb") as f:
+        f.write(head)
+        while f.tell() < nbytes:
+            f.write(block_fn())
+        return f.tell()
+
+
+def write_gff(path: str, nbytes: int, seed: int = 2024,
+              seqid: bytes = b"chr1") -> int:
+    """Write at least `nbytes` of GFF3 in Ensembl's shape: genes, each with
+    a transcript (ID, Parent, Dbxref) and 2-8 exons and CDSs pointing at it
+    (Parent), havana/ensembl sources, strands and phases."""
+    rng = np.random.default_rng(seed)
+    st = {"pos": 1000, "g": 0}
+
+    def block():
+        rows = []
+        for _ in range(200):
+            pos = st["pos"] = st["pos"] + int(rng.integers(1000, 20000))
+            g = st["g"] = st["g"] + 1
+            glen = int(rng.integers(2000, 60000))
+            src = (b"havana", b"ensembl")[int(rng.integers(0, 2))]
+            strand = (b"+", b"-")[int(rng.integers(0, 2))]
+            gid, tid = b"ENSG%011d" % (g * 7), b"ENST%011d" % (g * 7 + 1)
+            rows.append(b"%s\t%s\tgene\t%d\t%d\t.\t%s\t.\tID=gene:%s;"
+                        b"Name=GENE%d;biotype=protein_coding;version=%d\n"
+                        % (seqid, src, pos, pos + glen, strand, gid, g,
+                           int(rng.integers(1, 20))))
+            rows.append(b"%s\t%s\tmRNA\t%d\t%d\t.\t%s\t.\tID=transcript:%s;"
+                        b"Parent=gene:%s;Dbxref=GeneID:%d,HGNC:HGNC:%d\n"
+                        % (seqid, src, pos, pos + glen, strand, tid, gid,
+                           1000 + g, 2000 + g))
+            ne = int(rng.integers(2, 9))
+            ex = np.sort(rng.integers(pos, pos + glen - 400, ne))
+            for e in range(ne):
+                a, b = int(ex[e]), int(ex[e]) + int(rng.integers(50, 400))
+                rows.append(b"%s\t%s\texon\t%d\t%d\t.\t%s\t.\tParent="
+                            b"transcript:%s;exon_number=%d;Name=%s-E%d\n"
+                            % (seqid, src, a, b, strand, tid, e + 1, tid,
+                               e + 1))
+                rows.append(b"%s\t%s\tCDS\t%d\t%d\t.\t%s\t%d\tParent="
+                            b"transcript:%s;protein_id=ENSP%011d\n"
+                            % (seqid, src, a, b, strand,
+                               int(rng.integers(0, 3)), tid, g * 7))
+        return b"".join(rows)
+    return _write_blocks(path, nbytes, b"##gff-version 3\n##sequence-region "
+                         b"%s 1 248956422\n" % seqid, block)
+
+
+def write_bed(path: str, nbytes: int, seed: int = 2024) -> int:
+    """Write at least `nbytes` of BED6 peaks (a track line, then chrom,
+    start, end, name, score, strand; 50-2000 bp apart, 50-500 bp long)."""
+    rng = np.random.default_rng(seed)
+    st = {"pos": 500, "i": 0}
+
+    def block():
+        n = 4000
+        start = st["pos"] + np.cumsum(rng.integers(50, 2000, n))
+        st["pos"] = int(start[-1])
+        end = start + rng.integers(50, 500, n)
+        score = rng.integers(0, 1000, n)
+        strand = np.frombuffer(b"+-.", np.uint8)[rng.integers(0, 3, n)]
+        i0 = st["i"]
+        st["i"] += n
+        return b"".join(b"chr7\t%d\t%d\tpeak_%d\t%d\t%c\n"
+                        % (start[k], end[k], i0 + k, score[k], strand[k])
+                        for k in range(n))
+    return _write_blocks(path, nbytes, b'track name=test description='
+                         b'"synthetic"\n', block)
+
+
+_ME23_GTS = [b"AA", b"AG", b"GG", b"CT", b"CC", b"TT", b"--", b"A", b"DI"]
+
+
+def write_me23(path: str, nbytes: int, seed: int = 2024,
+               chrom: bytes = b"1") -> int:
+    """Write at least `nbytes` of a 23andMe raw-data file: rsid,
+    chromosome, position (1-20 bp apart) and genotype (diploid SNPs, some
+    no-calls `--`, haploid calls and indels)."""
+    rng = np.random.default_rng(seed)
+    st = {"pos": 10000, "i": 0}
+
+    def block():
+        n = 8000
+        pos = st["pos"] + np.cumsum(rng.integers(1, 20, n))
+        st["pos"] = int(pos[-1])
+        gt = rng.choice(len(_ME23_GTS), n,
+                        p=[.3, .2, .2, .1, .1, .07, .01, .01, .01])
+        i0 = st["i"]
+        st["i"] += n
+        return b"".join(b"rs%d\t%s\t%d\t%s\n"
+                        % (3000000 + (i0 + k) * 11, chrom, pos[k],
+                           _ME23_GTS[gt[k]]) for k in range(n))
+    return _write_blocks(path, nbytes, b"# This data file generated by "
+                         b"23andMe at: Sat Jan 01 00:00:00 2022\n# rsid\t"
+                         b"chromosome\tposition\tgenotype\n", block)
+
+
+def write_locs(path: str, nbytes: int, seed: int = 2024) -> int:
+    """Write an Illumina .locs file of about `nbytes`: the 12-byte header
+    (1, 1.0, n) and n cluster positions (x, y) as float32 on a jittered
+    grid."""
+    rng = np.random.default_rng(seed)
+    n = max((nbytes - 12) // 8, 1)
+    side = int(np.ceil(np.sqrt(n)))
+    k = np.arange(n)
+    xy = np.stack([(k % side) * 9.5, (k // side) * 9.5], 1)
+    xy = (xy + rng.normal(0, 0.8, (n, 2))).astype("<f4")
+    with open(path, "wb") as f:
+        f.write(np.array([1], "<u4").tobytes() + np.array([1.0], "<f4")
+                .tobytes() + np.array([n], "<u4").tobytes())
+        f.write(xy.tobytes())
+        return f.tell()
+
+
+def write_generic(path: str, nbytes: int, seed: int = 2024) -> int:
+    """Write at least `nbytes` of a text log with no datatype of its own
+    (timestamps, levels, hosts, counters): what `zip --input-type generic`
+    compresses as one blob per VB."""
+    rng = np.random.default_rng(seed)
+    st = {"t": 1_700_000_000_000}
+    levels = [b"INFO", b"WARN", b"DEBUG", b"ERROR"]
+
+    def block():
+        n = 5000
+        t = st["t"] + np.cumsum(rng.integers(0, 2000, n))
+        st["t"] = int(t[-1])
+        lv = rng.choice(4, n, p=[.7, .1, .18, .02])
+        host = rng.integers(0, 32, n)
+        val = rng.integers(0, 100000, n)
+        return b"".join(b"%d %s node%02d.cluster served %d bytes in %d ms\n"
+                        % (t[k], levels[lv[k]], host[k], val[k], val[k] % 997)
+                        for k in range(n))
+    return _write_blocks(path, nbytes, b"", block)

@@ -1,21 +1,24 @@
-"""SAM <-> BAM translations (reference parity: src/data_types.h:251-262
+"""Archive translations (reference parity: src/data_types.h:251-262
 TRANSLATIONS, src/bai.c): `cat --sam` turns a BAM archive's records into
-SAM text, `cat --bam` a SAM archive's lines into BGZF BAM records, and
-`cat --bam --index` also writes the BAI index of what it wrote.
+SAM text, `cat --bam` a SAM archive's lines into BGZF BAM records, `cat
+--bam --index` also writes the BAI index of what it wrote, and `cat --vcf`
+turns a 23andMe archive's rows into VCF records (src/me23.c).
 
-genozip_tpu_torch's own copy of genozip_tpu/translate.py's SAM/BAM half:
+genozip_tpu_torch's own copy of genozip_tpu/translate.py:
 `bam_header_to_sam`, `bam_vb_to_sam` (vectorized fixed fields, a Python
 decode of each record's aux), `sam_header_to_bam`, `sam_vb_to_bam`,
-`IndexingBgzfWriter` and `build_bai`. The record walk is the port's Python
-`datatypes/bam.bam_scan`. `synth.py` and the tests use the SAM -> BAM half
-too.
+`IndexingBgzfWriter`, `build_bai`, `VCF_ME23_HEADER` and `me23_vb_to_vcf`.
+The record walk is the port's Python `datatypes/bam.bam_scan`. `synth.py`
+and the tests use the SAM -> BAM half too.
 """
 
 import struct
 
 import numpy as np
 
+from .contexts import dedup_col
 from .datatypes.bam import bam_scan
+from .ops import pack as packops
 from .utils import ragged
 from .utils.bgzf import EOF_BLOCK, _one_block
 from .utils.ragged import Col
@@ -93,6 +96,82 @@ def _aux_to_sam(rec: memoryview) -> bytes:
         else:
             break  # unknown type: stop (malformed aux)
     return ("\t" + "\t".join(out)).encode() if out else b""
+
+
+VCF_ME23_HEADER = (b"##fileformat=VCFv4.1\n"
+                   b"##source=genozip_tpu me23->vcf translation\n"
+                   b"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+                   b"\tSAMPLE\n")
+
+
+def me23_vb_to_vcf(text: bytes, ref) -> bytes:
+    """Translate 23andMe rows (rsid chrom pos genotype) to VCF records. The
+    REF base comes from the reference genome; rows whose genotype is not
+    SNP-like (indels, '--') or whose position is off the genome are
+    dropped, like the reference translator. A last row without its newline
+    is translated too (genozip_tpu drops it: fault F13)."""
+    data = np.frombuffer(text, np.uint8)
+    if data.shape[0] == 0:
+        return b""
+    nl = np.nonzero(data == ord("\n"))[0]
+    if nl.shape[0] == 0 or nl[-1] != data.shape[0] - 1:
+        nl = np.concatenate([nl, [data.shape[0]]])
+    starts = np.concatenate([[0], nl[:-1] + 1])
+    lines = ragged.gather_ranges(data, starts, nl - starts)
+    n = len(lines)
+    first = np.zeros(n, np.uint8)
+    ne = lines.lens > 0
+    first[ne] = data[starts[ne]]
+    is_data = ne & (first != ord("#"))
+    rows = np.nonzero(is_data)[0]
+    sub = ragged.take(lines, rows)
+    fields = ragged.split_fields_fixed(sub, ord("\t"), 4)
+    rsid, chrom, posc, gt = fields
+    pv, pok = ragged.atoi(posc)
+
+    # contig gpos per unique chrom (try name, then chr<name>)
+    uw, inv = dedup_col(chrom)
+    base = np.full(len(uw), -1, dtype=np.int64)
+    for w in range(len(uw)):
+        nm = uw.row(w).decode("utf-8", "replace")
+        c = ref.contig_of(nm) or ref.contig_of("chr" + nm)
+        if c is not None:
+            base[w] = c["gpos"]
+    gbase = base[inv]
+
+    gmat, glens = ragged.to_matrix(gt)
+    a1 = gmat[:, 0] if gmat.shape[1] else np.zeros(len(sub), np.uint8)
+    a2 = gmat[:, 1] if gmat.shape[1] > 1 else np.zeros(len(sub), np.uint8)
+    snp = (packops.IS_ACGT[a1] & ((glens == 1) |
+           ((glens == 2) & packops.IS_ACGT[a2])))
+    ok = pok & (gbase >= 0) & (pv > 0) & snp & (gbase + pv - 1 < ref.length)
+    kidx = np.nonzero(ok)[0]
+    if kidx.shape[0] == 0:
+        return b""
+    refb = packops.ACGT[ref.codes[(gbase + pv - 1)[kidx]]]
+    a1k, a2k = a1[kidx], a2[kidx]
+    hap = (glens == 1)[kidx]
+    out = []
+    for i, r in enumerate(kidx):
+        rb = refb[i]
+        alleles = [int(a1k[i])] + ([] if hap[i] else [int(a2k[i])])
+        alts = []
+        gt_idx = []
+        for al in alleles:
+            if al == rb:
+                gt_idx.append(0)
+            else:
+                ch = chr(al)
+                if ch not in alts:
+                    alts.append(ch)
+                gt_idx.append(alts.index(ch) + 1)
+        alt_s = ",".join(alts) if alts else "."
+        gt_s = "/".join(str(g) for g in gt_idx)
+        out.append(b"\t".join([
+            chrom.row(int(r)), posc.row(int(r)), rsid.row(int(r)),
+            bytes([rb]), alt_s.encode(), b".", b".", b".", b"GT",
+            gt_s.encode()]) + b"\n")
+    return b"".join(out)
 
 
 def bam_vb_to_sam(records: bytes, ref_names: list[str]) -> bytes:

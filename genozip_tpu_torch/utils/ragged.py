@@ -164,6 +164,31 @@ def interleave(cols, sep_after=None) -> Col:
     return Col(out, offsets)
 
 
+def split_fields_fixed(line_col: Col, sep: int, num_fields: int):
+    """Split every row of a column on `sep` into exactly num_fields columns.
+    Rows must all contain exactly num_fields-1 separators (validated).
+    Returns a list of Cols."""
+    data = line_col.data
+    n = len(line_col)
+    sep_pos = np.nonzero(data == sep)[0]
+    row_of = np.searchsorted(line_col.offsets[1:], sep_pos, side="right")
+    counts = np.bincount(row_of, minlength=n)
+    if not np.all(counts == num_fields - 1):
+        raise ValueError("row with wrong field count")
+    sp = sep_pos.reshape(n, num_fields - 1) if num_fields > 1 \
+        else np.zeros((n, 0), np.int64)
+    bounds = np.empty((n, num_fields + 1), dtype=np.int64)
+    bounds[:, 0] = line_col.offsets[:-1]
+    bounds[:, 1:-1] = sp + 1
+    bounds[:, -1] = line_col.offsets[1:]
+    cols = []
+    for f in range(num_fields):
+        starts = bounds[:, f]
+        ends = bounds[:, f + 1] - (1 if f < num_fields - 1 else 0)
+        cols.append(gather_ranges(data, starts, ends - starts))
+    return cols
+
+
 def split_first_fields(line_col: Col, sep: int, k: int):
     """Split each row into its first k sep-separated fields plus the raw
     remainder (remainder INCLUDES its leading separator, or is empty for rows

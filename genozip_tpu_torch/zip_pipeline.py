@@ -1,11 +1,13 @@
-"""ZIP pipeline: compress a FASTQ, SAM or BAM file, or a pair of FASTQ files,
-into a GXZ archive.
+"""ZIP pipeline: compress a file of any datatype (FASTQ, SAM, BAM, VCF,
+FASTA, GFF, BED, 23andMe, LOCS or generic), or a pair of FASTQ files, into a
+GXZ archive.
 
 Counterpart of genozip_tpu/zip_pipeline.py `zip_file` and `zip_pair`:
 per-VB seg on a thread pool, deterministic in-order dict merge, per-context
 codec assignment committed on first sight, section write, then the global
 area (dicts, counts, stats, a stored reference, file header). With
---reference, SEQ is aligned against the genome on the host; with
+--reference, FASTQ SEQ is aligned against the genome on the host, and a
+SAM's SEQ and a VCF's REF are predicted from it; with
 --REFERENCE the genome ranges the file used are stored in the archive. A VB's
 whole-section RANS0 and RANS1 payloads of the device size go to the card in
 one launch per order. The archive bytes equal genozip_tpu's with its device
@@ -306,15 +308,17 @@ def _open_component(in_path, reference=None, dt_name=None, ref=None):
 def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
              show_stats: bool = False, threads: int | None = None,
              reference: str | None = None, store_ref: bool = False,
-             optimize: bool = False, bamass: str | None = None):
-    """Compress one FASTQ, SAM or BAM file, against `reference` (a .ref.gxz)
-    if given; `store_ref` also stores the genome ranges used (--REFERENCE);
-    `bamass` names a BAM whose alignments place the FASTQ's reads. The rANS
-    device is whatever `codecs.enable_device_rans` set (host coders only if
-    nothing)."""
+             optimize: bool = False, bamass: str | None = None,
+             dt_name: str | None = None):
+    """Compress one file of any datatype, detected from its name and first
+    bytes unless `dt_name` (--input-type) names it, against `reference` (a
+    .ref.gxz) if given; `store_ref` also stores the genome ranges used
+    (--REFERENCE); `bamass` names a BAM whose alignments place the FASTQ's
+    reads. The rANS device is whatever `codecs.enable_device_rans` set (host
+    coders only if nothing)."""
     if bamass and not reference:
         raise ValueError("--bamass needs --reference")
-    reader, dt, dt_name = _open_component(in_path, reference)
+    reader, dt, dt_name = _open_component(in_path, reference, dt_name)
     try:
         dt.optimize_enabled = optimize
         if store_ref and getattr(dt, "ref", None) is not None:

@@ -3,10 +3,10 @@ chip_smoke.py, imports the JAX package genozip_tpu (or jax), at the top of
 a file or inside a function; and a run of the port's commands in a fresh
 interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module and no `jax`
 in sys.modules. The SAM/BAM modules (sag, translate, datatypes/sam,
-sam_tags, bam), and those of deep, bamass, coverage and regions, are among
-the files walked, and SAM/BAM, --deep, --bamass and translation commands
-among the runs; on a card, SAM and BAM archives from `--device cuda` equal
-the cpu ones."""
+sam_tags, bam), those of deep, bamass, coverage and regions, and the VCF,
+PBWT and text datatype modules are among the files walked, and SAM/BAM,
+--deep, --bamass, VCF, `cat --vcf` and translation commands among the runs;
+on a card, SAM and BAM archives from `--device cuda` equal the cpu ones."""
 
 import ast
 import json
@@ -55,7 +55,9 @@ def test_sources_found():
     assert len(SOURCES) > 25 and "genozip_tpu_torch/cli.py" in SOURCES
     for m in ("sag.py", "translate.py", "datatypes/sam.py",
               "datatypes/sam_tags.py", "datatypes/bam.py", "deep.py",
-              "bamass.py", "coverage.py", "regions.py"):
+              "bamass.py", "coverage.py", "regions.py", "datatypes/vcf.py",
+              "ops/pbwt.py", "datatypes/tabular.py", "datatypes/gff.py",
+              "datatypes/fasta.py", "datatypes/generic.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
@@ -82,6 +84,11 @@ def inputs(tmp_path_factory):
     kw = dict(seed=4, genome_len=1 << 20, window_reads=1500)
     synth.write_bam(str(d / "a.bam"), 200 << 10, **kw)
     synth.write_sam(str(d / "a.sam"), 300 << 10, **kw)
+    synth.write_vcf(str(d / "v.vcf"), 200 << 10, seed=7, samples=20)
+    synth.write_me23(str(d / "m.txt"), 100 << 10, seed=8)
+    synth.write_fasta(str(d / "chr1.fa"), g, names=[b"chr1"])
+    refstore.make_reference(str(d / "chr1.fa"), str(d / "c1.ref.gxz"),
+                            hash_bits=14)
     codecs.enable_device_rans("cpu", min_size=16 << 10)
     try:
         zip_pipeline.zip_file(str(d / "a.bam"), str(d / "b.gxz"))
@@ -91,6 +98,8 @@ def inputs(tmp_path_factory):
         zip_pipeline.zip_file(str(d / "a.sam"), str(d / "s.gxz"))
         zip_pipeline.zip_deep(str(d / "a.bam"), [str(d / "r1.fastq")],
                               str(d / "d.gxz"))
+        zip_pipeline.zip_file(str(d / "v.vcf"), str(d / "v.gxz"))
+        zip_pipeline.zip_file(str(d / "m.txt"), str(d / "m.gxz"))
     finally:
         codecs.disable_device_rans()
     return d
@@ -125,6 +134,11 @@ RUNS = {
     "cat_idxstats": ["cat", "{d}/b.gxz", "--idxstats", "--device", "cpu"],
     "cat_regions_count": ["cat", "{d}/s.gxz", "-r", "chr1:1-100000",
                           "--count", "--device", "cpu"],
+    "zip_vcf": ["zip", "{d}/v.vcf", "-o", "{t}/v.gxz", "--device", "cpu",
+                "-q"],
+    "unzip_vcf": ["unzip", "{d}/v.gxz", "-o", "{t}/v.vcf", "--device", "cpu"],
+    "cat_vcf": ["cat", "{d}/m.gxz", "--vcf", "--reference", "{d}/c1.ref.gxz",
+                "-o", "{t}/m.vcf", "--device", "cpu"],
 }
 SCRIPT = """
 import json, sys
@@ -152,6 +166,13 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
         with open(tmp_path / "r.out", "rb") as a, \
                 open(inputs / "r.fastq", "rb") as b:
             assert a.read() == b.read()
+    if case == "unzip_vcf":
+        with open(tmp_path / "v.vcf", "rb") as a, \
+                open(inputs / "v.vcf", "rb") as b:
+            assert a.read() == b.read()
+    if case == "cat_vcf":
+        with open(tmp_path / "m.vcf", "rb") as a:
+            assert a.read().count(b"\trs") > 1000
     if case == "unzip_bam":
         with open(tmp_path / "b.bam", "rb") as a, \
                 open(inputs / "a.bam", "rb") as b:
