@@ -8,9 +8,9 @@
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. setup: the card (nvidia-smi name and power limit), torch/CUDA versions,
-   and the nvcc builds of the kernels (csrc/rans.cu) and of their
-   microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas' register
-   and spill report.
+   and the nvcc builds of the kernels (csrc/rans.cu, csrc/aes.cu) and of the
+   rANS microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas'
+   register and spill report.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
    on the same inputs, byte for byte (tolerance: exact), at main-path shapes
    (R = 8 streams of 1-4 MiB of packed SEQ and packed QUAL, which has 256
@@ -52,7 +52,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    every kernel's launch count over this run must be > 0. At 2 x 16 MiB the
    --device cuda archive must equal the --device cpu one, and a --REFERENCE
    archive must unzip without --reference.
-7. cfg5 full run: a 64 MiB (on disk) coordinate-sorted BAM of 150 bp reads
+7. cfg5 full run: a 32 MiB (on disk; 64 before phase 10 joined the smoke)
+   coordinate-sorted BAM of 150 bp reads
    over 32 Mbp contigs with ~8% multi-mappers (primary + secondary) and ~4%
    split reads (primary + supplementary), BGZF at zlib level 6
    (`synth.write_bam`); `zip --vblock 16` (REF_INTERNAL, gencomp and the SAG
@@ -76,9 +77,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
    deep archive equal from cuda and cpu, `cat --coverage` of it counting
    the generator's reads per contig, and `zip --bamass` of the R1
    against a reference of that genome (under the BAM's contig names), equal
-   from cuda and cpu and unzipped with the reference only; a 64 MiB
-   long-read SAM (`synth.write_longread_sam`) zipped and unzipped byte for
-   byte.
+   from cuda and cpu and unzipped with the reference only; a 16 MiB (64
+   before phase 10 joined the smoke) long-read SAM
+   (`synth.write_longread_sam`) zipped and unzipped byte for byte.
 9. cfg1, cfg2 and the other datatypes: a 64 MiB VCF of a 200-sample
    cohort (`synth.write_vcf`, bench.py's `gen_vcf` shapes) through `zip
    --vblock 16`, `unzip` (byte for byte), `ls`, `cat --head 1000` and `cat
@@ -94,16 +95,34 @@ Phases, each printed on its own lines; any failure exits non-zero:
    `--input-type generic`, each cuda == cpu and unzipped byte for byte,
    with MB/s; and `cat --vcf` of the 23andMe archive against the chr1
    reference, equal to `translate.me23_vb_to_vcf` of the generator's text.
+10. tools: the aes256_ctr kernel against its plain version on the card,
+   byte for byte, at n in {0, 1, 15, 16, 17, 4095, 4097, 1 MiB, 64 MiB} and
+   counters whose low bytes carry, timed at 1 and 64 MiB; phase 4's 128
+   MiB FASTQ through `zip --password --md5 --test`, `unzip --password`
+   (byte for byte) and `cat --password --head 1000`, with MB/s beside phase
+   4's unencrypted ones and every kernel's launches (each must be > 0, the
+   AES kernel's too); a wrong and a missing password refused; 16 MiB
+   encrypted from cuda and cpu the same bytes with the salt fixed; phase
+   7's BAM encrypted (REF_INTERNAL, gencomp) and unzipped byte for byte;
+   `zip --best` of 16 MiB of cfg3 FASTQ and of the first 4 MiB of phase
+   7's SAM (at 16 MiB no SAM section takes BWT), cuda and cpu in four child
+   processes side by side (codec trials are host work), the archives
+   equal, unzipped byte for byte, with sections per codec (the SAM's must
+   hold a BWT section), MB/s and --show-time regions; then `--tar` of two inputs (each member that input's own
+   archive), `--replace`, `--truncate` of a FASTQ cut mid-record,
+   `--biopsy 2` against VB 2, and a .cram input read through a samtools
+   shim.
 
-They run in the order 2, 2b, 5, 3-4, 6-9. The inputs of phases 7-9 are
+They run in the order 2, 2b, 5, 3-4, 6-10. The inputs of phases 7-9 are
 written in a child process (`InputWriter`, numpy on the host) while phases
 2, 2b and 5 keep the card busy; phase 3 starts when it is done. Each
 phase's seconds and the total are printed.
 
-Neither jax nor any module of the JAX package genozip_tpu may have been
-imported. The last two lines are a JSON object with the numbers of all
-sixteen TPU kernels' counterparts (time, plain time, bytes-or-operations
-bound, launches on the cfg4, cfg3, cfg5, deep, cfg1 and cfg2 paths) and
+Neither jax, nor any module of the JAX package genozip_tpu, nor
+cryptography may have been imported. The last two lines are a JSON object
+with the numbers of all sixteen TPU kernels' counterparts and of the AES
+kernel (time, plain time, bytes-or-operations bound, launches on the cfg4,
+cfg3, cfg5, deep, cfg1, cfg2 and phase 10 paths) and
 {"ok": true,
 "device": {...}}. Needs no network; writes under a temporary directory
 that it removes.
@@ -157,7 +176,8 @@ TPU_ROWS = [
 ENTRY_N = (100, 517, 33000, 131072, 200000)
 CHR20_BP = 64_444_167     # GRCh38 chr20, the cfg4 genome's length
 # input sizes of phases 7-9 in MiB, shared by the phases and `InputWriter`
-CFG5_MIB, SAM_MIB, SMALL_MIB, LONGREAD_MIB, CFG1_MIB = 64, 16, 16, 64, 64
+# (cfg5 and the long reads were 64 MiB until phase 10 joined the smoke)
+CFG5_MIB, SAM_MIB, SMALL_MIB, LONGREAD_MIB, CFG1_MIB = 32, 16, 16, 16, 64
 BAMASS_GENOME, CFG1_REF_BP = 4 << 20, 8 << 20
 ENTRY_LANES = (128, 256, 1024)
 QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
@@ -563,8 +583,9 @@ class InputWriter:
             self.proc.join()
 
 
-def phase_cfg3(tmp, smi, full_mib=128, host_mib=32):
-    """Phases 3 and 4. Returns the launch counts of the full run."""
+def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False):
+    """Phases 3 and 4. Returns the launch counts of the full run, its zip
+    and unzip MB/s, and (with `keep`: phase 10 reuses it) the FASTQ."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     # 3. device equals host
@@ -610,9 +631,9 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise SystemExit(f"full run: kernels never launched: {missing}")
-    for p in (fq, z, out):
+    for p in (z, out) if keep else (fq, z, out):
         os.remove(p)
-    return counts
+    return counts, (size / 1e6 / tz, size / 1e6 / tu), fq if keep else None
 
 
 def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
@@ -1260,6 +1281,421 @@ def phase_cfg1(tmp, smi, vcf_mib=CFG1_MIB, small_mib=SMALL_MIB,
     return counts, counts2
 
 
+AES_SIZES = (0, 1, 15, 16, 17, 4095, 4097, MIB, 64 * MIB)
+# counter0 = salt[:8] || offset (little-endian): a plain one, the offset's
+# top byte 0xFF (the first increment carries), the low 8 bytes all 0xFF
+# (the carry reaches the salt half), and the 128-bit wrap
+AES_COUNTERS = (bytes(range(16)), b"\x11" * 8 + b"\x00" * 7 + b"\xff",
+                b"\x22" * 8 + b"\xff" * 8, b"\xff" * 16)
+AES_OPS_PER_BLOCK = 448   # 14 rounds x 16 bytes x (one lookup, one XOR)
+PW = "smoke-password"
+
+
+def check_aes(rng):
+    """The aes256_ctr kernel against its plain version on the card, at
+    AES_SIZES x AES_COUNTERS, byte for byte; then both timed (CUDA events,
+    mean of 5 after a warm-up) at 1 MiB and 64 MiB. Returns {n: (max_abs_err,
+    ms, plain ms, bytes, bound ms, bound by)} for the timed sizes."""
+    from genozip_tpu_torch.ops import aes_cuda, aes_torch
+    key = rng.integers(0, 256, 32, np.uint8).tobytes()
+    rk = aes_torch.round_keys(key)
+    meas, checked = {}, 0
+    for n in AES_SIZES:
+        data = torch.from_numpy(rng.integers(0, 256, n, np.uint8)).cuda()
+        for c0 in AES_COUNTERS:
+            hi, lo = aes_torch.split_counter(c0)
+            k = aes_cuda.aes256_ctr_xor_(data.clone(), rk, hi, lo)
+            p = aes_torch.aes256_ctr_plain(rk, hi, lo, data.clone())
+            torch.cuda.synchronize()
+            err = int((k.int() - p.int()).abs().max()) if n else 0
+            if err or not torch.equal(k, p):
+                raise SystemExit(f"aes256_ctr n={n} counter0={c0.hex()}: "
+                                 f"kernel differs from plain (max_abs_err "
+                                 f"{err})")
+            checked += 1
+        if n in (MIB, 64 * MIB):
+            buf = data.clone()
+            ms = cuda_ms(lambda: aes_cuda.aes256_ctr_xor_(buf, rk, hi, lo), 5)
+            pms = cuda_ms(lambda: aes_torch.aes256_ctr_plain(rk, hi, lo, buf),
+                          5)
+            nbytes = 2 * n
+            bms, by = max((nbytes / HBM_BPS * 1e3, "bytes"),
+                          ((n + 15) // 16 * AES_OPS_PER_BLOCK / ALU_OPS * 1e3,
+                           "operations"))
+            meas[n] = (0, ms, pms, nbytes, bms, by)
+            log(f"kernel aes256_ctr: {ms:.4f} ms at {n} bytes "
+                f"({n / 1e6 / ms:.2f} GB/s), plain {pms:.3f} ms, bound "
+                f"{bms:.6f} ms ({by}), share {100 * bms / ms:.2f}%")
+    log(f"kernel aes256_ctr: equal to plain at {checked} (n, counter0) "
+        f"cases, n in {AES_SIZES}")
+    return meas
+
+
+def section_codecs(path):
+    """{codec name: sections} of an archive (the headers are not
+    encrypted)."""
+    from collections import Counter
+    from genozip_tpu_torch import codecs
+    from genozip_tpu_torch.format import sections as fmt
+    out = Counter()
+    with open(path, "rb") as f:
+        for ent in fmt.ZReader(f).index:
+            f.seek(ent.offset)
+            out[codecs.NAMES[fmt._HDR.unpack(f.read(fmt.HDR_SIZE))[2]]] += 1
+    return dict(out)
+
+
+@contextlib.contextmanager
+def call_times(module, name, sink):
+    """Append the seconds of every call of module.name to `sink`."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **k):
+        t = time.time()
+        try:
+            return orig(*a, **k)
+        finally:
+            sink.append(time.time() - t)
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def fixed_salt():
+    """The salt of every archive made meanwhile is one value, as the tests
+    fix it, so two archives of the same input can be compared."""
+    from genozip_tpu_torch import crypt
+    orig = crypt.new_salt
+    crypt.new_salt = lambda: bytes(range(16))
+    try:
+        yield
+    finally:
+        crypt.new_salt = orig
+
+
+def fails(args, msg):
+    """run_cli(args) must raise an error that says `msg`."""
+    try:
+        run_cli(args, True)
+    except Exception as e:      # noqa: BLE001 (any error, checked below)
+        if msg not in str(e):
+            raise SystemExit(f"{args}: failed with {e!r}, not {msg!r}")
+        return
+    raise SystemExit(f"{args}: did not fail")
+
+
+def cut_records(src, dst, nbytes, lines_per_record=1):
+    """The first whole records of `src` within `nbytes` into `dst` (a SAM's
+    header lines count as records)."""
+    with open(src, "rb") as f:
+        data = f.read(nbytes)
+    ends = np.flatnonzero(np.frombuffer(data, np.uint8) == ord("\n"))
+    k = len(ends) // lines_per_record * lines_per_record
+    with open(dst, "wb") as f:
+        f.write(data[:ends[k - 1] + 1])
+
+
+def phase_tools(tmp, smi, fq=None, rates3=None, full_mib=128,
+                bam_mib=CFG5_MIB, best_mib=SAM_MIB, best_sam_mib=4,
+                small_mib=4):
+    """Phase 10: encrypted archives with the aes256_ctr kernel, `--best`
+    with the BWT codec, and the small tools. Returns the AES kernel's
+    measurements and the launch counts of the encrypted cfg3 run."""
+    from genozip_tpu_torch import piz_pipeline, synth, zip_pipeline
+    from genozip_tpu_torch.ops import aes_cuda, rans_cuda
+    from genozip_tpu_torch.zip_pipeline import profiler
+    aes = check_aes(np.random.default_rng(10))
+
+    # the cfg3 FASTQ of phase 4 (128 MiB), encrypted, on the card
+    if fq is None:
+        fq = os.path.join(tmp, "reads.fastq")
+        synth.write_fastq(fq, full_mib * MIB, seed=512)
+    size = os.path.getsize(fq)
+    z, out = fq + ".enc.gxz", fq + ".out"
+    torch.cuda.synchronize()
+    rans_cuda.reset_launches()
+    aes_cuda.reset_launches()
+    tz, tt = [], []
+    t = time.time()
+    with call_times(zip_pipeline, "zip_file", tz), \
+            call_times(piz_pipeline, "piz_file", tt):
+        run_cli(["zip", fq, "-o", z, "--password", PW, "--md5", "--test",
+                 "--device", "cuda", "-q"], True)
+    tzt = time.time() - t
+    t = time.time()
+    run_cli(["unzip", z, "-o", out, "--password", PW, "--device", "cuda"])
+    tu = time.time() - t
+    head = run_cli(["cat", z, "--head", "1000", "--password", PW, "--device",
+                    "cuda"], True)
+    torch.cuda.synchronize()
+    counts = {**rans_cuda.launches, **aes_cuda.launches}
+    if not same_file(fq, out):
+        raise SystemExit("tools: unzip --password differs from the input")
+    if head != head_records(fq, 1000):
+        raise SystemExit("tools: cat --password --head 1000 differs")
+    fails(["cat", z, "--head", "10", "--password", "not-it", "--device",
+           "cuda"], "wrong password")
+    fails(["cat", z, "--head", "10", "--device", "cuda"],
+          "--password required")
+    pr = piz_pipeline.PizReader(z, password=PW)
+    h = pr.file_hdr
+    pr.close()
+    if not (h["enc"] and h["md5"]):
+        raise SystemExit(f"tools: header enc {h['enc']}, md5 {h['md5']}")
+    base = (f"; unencrypted (phase 4) zip {rates3[0]:.2f}, unzip "
+            f"{rates3[1]:.2f} MB/s") if rates3 else ""
+    log(f"tools: cfg3 {size} bytes zip --password --md5 --test {tzt:.1f} s "
+        f"(zip {size / 1e6 / tz[0]:.2f} MB/s, {tz[0]:.1f} s; --test "
+        f"{tt[0]:.1f} s); unzip --password {size / 1e6 / tu:.2f} MB/s "
+        f"({tu:.1f} s){base}; ratio {size / os.path.getsize(z):.3f}; unzip "
+        f"and cat --head 1000 exact, wrong and missing password refused; "
+        f"on {smi}")
+    log(f"tools: launches over zip --test + unzip + cat {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"tools: kernels never launched: {missing}")
+    # the same file unencrypted again, so that encrypted and plain runs
+    # alternate in this call (plain in phase 4, encrypted, plain)
+    tp, tpu, _, _ = _zip_unzip(fq, fq + ".gxz", out)
+    log(f"tools: cfg3 unencrypted again: zip {size / 1e6 / tp:.2f} MB/s "
+        f"({tp:.1f} s), unzip {size / 1e6 / tpu:.2f} MB/s ({tpu:.1f} s)")
+    for p in (z, out, fq + ".gxz"):
+        os.remove(p)
+
+    # device equals host, encrypted, with the salt fixed; then the --best
+    # inputs: 16 MiB of cfg3 FASTQ and phase 7's 16 MiB of cfg5 SAM
+    fq16 = os.path.join(tmp, "best.fastq")
+    synth.write_fastq(fq16, best_mib * MIB, seed=16, block=5000)
+    with fixed_salt():
+        zs, ts = zip_cuda_cpu([fq16], fq16 + ".enc", ["--password", PW],
+                              "tools: encrypted")
+    log(f"tools: {os.path.getsize(fq16)} bytes zip --password: archives "
+        f"equal from cuda and cpu with the salt fixed; cuda {ts['cuda']:.1f}"
+        f" s, cpu {ts['cpu']:.1f} s")
+    for p in zs.values():
+        os.remove(p)
+    sam16 = os.path.join(tmp, "cfg5.sam")
+    write_inputs("cfg5", tmp, bam_mib=bam_mib, sam_mib=best_mib)
+    # --best of the SAM text on its first 4 MiB: there its POS and SAGIDX
+    # sections take BWT; at 16 MiB no section does
+    sam4 = os.path.join(tmp, "best.sam")
+    cut_records(sam16, sam4, best_sam_mib * MIB)
+    # --best: its codec trials are host work, mostly on one core, so the
+    # four zips (two inputs, cuda and cpu) run in child processes beside
+    # the encrypted BAM and the small tools
+    kids = {(src, dev): ChildCli(
+        ["zip", src, "-o", f"{src}.best.{dev}.gxz", "--best", "--device",
+         dev, "-q", "--show-time"], f"{src}.best.{dev}.log")
+        for src in (fq16, sam4) for dev in ("cuda", "cpu")}
+    try:
+        # the cfg5 BAM of phase 7, encrypted (REF_INTERNAL, gencomp)
+        bam = os.path.join(tmp, "cfg5.bam")
+        zb, ob = bam + ".enc.gxz", os.path.join(tmp, "cfg5.enc.out.bam")
+        t = time.time()
+        run_cli(["zip", bam, "-o", zb, "--password", PW, "--vblock", "16",
+                 "--device", "cuda", "-q"])
+        tzb = time.time() - t
+        t = time.time()
+        run_cli(["unzip", zb, "-o", ob, "--password", PW, "--device",
+                 "cuda"])
+        tub = time.time() - t
+        if not same_file(bam, ob):
+            raise SystemExit("tools: the encrypted BAM archive does not "
+                             "unzip to the input")
+        pr = piz_pipeline.PizReader(zb, password=PW)
+        h = pr.file_hdr
+        pr.close()
+        if not (h["enc"] and h["ref_internal"] and h["gencomp"]):
+            raise SystemExit(f"tools: encrypted BAM: enc {h['enc']}, "
+                             f"REF_INTERNAL {h['ref_internal']}, gencomp "
+                             f"{h['gencomp']}")
+        disk = os.path.getsize(bam)
+        log(f"tools: cfg5 BAM ({disk} bytes) zip --password "
+            f"{disk / 1e6 / tzb:.2f} MB/s on disk ({tzb:.1f} s), unzip "
+            f"{disk / 1e6 / tub:.2f} MB/s ({tub:.1f} s), byte exact, "
+            f"REF_INTERNAL and gencomp encrypted (beside the --best runs)")
+        for p in (zb, ob):
+            os.remove(p)
+
+        small_tools(tmp, fq16, sam16, small_mib)
+
+        t = time.time()
+        done = {key: kid.wait() for key, kid in kids.items()}
+        log(f"tools: waited {time.time() - t:.1f} s for the --best runs")
+    finally:
+        for kid in kids.values():
+            kid.stop()
+    for src in (fq16, sam4):
+        name, n = os.path.basename(src), os.path.getsize(src)
+        zc = f"{src}.best.cuda.gxz"
+        if not same_file(zc, f"{src}.best.cpu.gxz"):
+            raise SystemExit(f"tools: --best archives of {name} differ "
+                             "between cuda and cpu")
+        t = time.time()
+        run_cli(["unzip", zc, "-o", src + ".best.out", "--device", "cuda"])
+        tuc = time.time() - t
+        if not same_file(src, src + ".best.out"):
+            raise SystemExit(f"tools: --best unzip of {name} differs")
+        cod = section_codecs(zc)
+        for dev in ("cuda", "cpu"):
+            secs, text = done[(src, dev)]
+            log(f"tools: --best {name} ({n} bytes) zip --device {dev} "
+                f"{n / 1e6 / secs:.3f} MB/s ({secs:.1f} s in its process, "
+                f"beside the other runs of this phase)")
+        log(f"tools: --best {name}: archives equal from cuda and cpu, ratio "
+            f"{n / os.path.getsize(zc):.3f}; unzip {n / 1e6 / tuc:.2f} MB/s "
+            f"({tuc:.1f} s), byte exact; sections per codec {cod}")
+        log(f"tools: --best {name} --device cuda zip --show-time and "
+            f"launches:\n" + done[(src, "cuda")][1])
+        if src == sam4 and not cod.get("BWT"):
+            raise SystemExit("tools: the --best SAM archive holds no BWT "
+                             "section")
+        for p in (zc, f"{src}.best.cpu.gxz", src + ".best.out"):
+            os.remove(p)
+    for p in (fq, fq16, sam4):
+        os.remove(p)
+    return aes, counts
+
+
+class ChildCli:
+    """The port's CLI in a child process (`python -c CHILD_CLI args`), its
+    output into `log_path`; `wait` returns (seconds that its main() took,
+    its output) and fails unless it exited 0."""
+
+    def __init__(self, args, log_path):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.log_path = log_path
+        self.log = open(log_path, "wb")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", CHILD_CLI, *args], cwd=root,
+            env={**os.environ, "PYTHONPATH": root}, stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def wait(self):
+        rc = self.proc.wait()
+        self.log.close()
+        with open(self.log_path) as f:
+            text = f.read()
+        os.remove(self.log_path)
+        if rc != 0:
+            raise SystemExit(f"child {self.proc.args[3:]} exited {rc}:\n"
+                             f"{text[-3000:]}")
+        secs = float(text.rsplit("elapsed ", 1)[1].split()[0])
+        return secs, text.rsplit("elapsed ", 1)[0].strip()
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+CHILD_CLI = """
+import sys, time
+from genozip_tpu_torch.cli import main
+from genozip_tpu_torch.ops import aes_cuda, rans_cuda
+t = time.time()
+rc = main(sys.argv[1:])
+print("launches", {**rans_cuda.launches, **aes_cuda.launches})
+print(f"elapsed {time.time() - t:.3f}")
+sys.exit(rc)
+"""
+
+
+def small_tools(tmp, fq16, sam16, small_mib):
+    """--tar, --replace, --truncate, --biopsy and a .cram input read through
+    a samtools shim, on the card."""
+    import tarfile
+    j = os.path.join
+    a, b = j(tmp, "t1.fastq"), j(tmp, "t2.sam")
+    cut_records(fq16, a, small_mib * MIB, 4)
+    cut_records(sam16, b, small_mib * MIB)
+    tar = j(tmp, "two.tar")
+    run_cli(["zip", a, b, "--tar", tar, "--device", "cuda"], True)
+    with tarfile.open(tar) as tf:
+        members = {m.name: tf.extractfile(m).read() for m in tf.getmembers()}
+    for src in (a, b):
+        run_cli(["zip", src, "-o", src + ".own.gxz", "--device", "cuda",
+                 "-q"])
+        with open(src + ".own.gxz", "rb") as f:
+            if members.get(os.path.basename(src) + ".gxz") != f.read():
+                raise SystemExit(f"tools: --tar member of {src} differs from "
+                                 "its own archive")
+        os.remove(src + ".own.gxz")
+    log(f"tools: --tar of two inputs: members {sorted(members)} equal each "
+        f"input's own archive")
+
+    keep = a + ".orig"
+    os.link(a, keep)
+    run_cli(["zip", a, "-o", a + ".gxz", "--replace", "--device", "cuda",
+             "-q"], True)
+    if os.path.exists(a):
+        raise SystemExit("tools: --replace left its input")
+    run_cli(["unzip", a + ".gxz", "-o", a, "--device", "cuda"])
+    if not same_file(a, keep):
+        raise SystemExit("tools: the --replace archive does not unzip")
+    log("tools: --replace removed its input after the digest verified; the "
+        "archive unzips byte exact")
+
+    cut = j(tmp, "cut.fastq")
+    with open(keep, "rb") as f, open(cut, "wb") as g:
+        data = f.read()
+        g.write(data[:len(data) * 2 // 3 + 7])
+    run_cli(["zip", cut, "-o", cut + ".gxz", "--truncate", "--device",
+             "cuda", "-q"])
+    run_cli(["unzip", cut + ".gxz", "-o", cut + ".out", "--device", "cuda"])
+    with open(cut + ".out", "rb") as f:
+        got = f.read()
+    if not (got.endswith(b"\n") and data.startswith(got) and
+            0 < len(data) * 2 // 3 + 7 - len(got) < 1000):
+        raise SystemExit("tools: --truncate did not keep the whole records "
+                         "before the cut")
+    log(f"tools: --truncate of a FASTQ cut mid-record: {len(got)} of "
+        f"{len(data) * 2 // 3 + 7} bytes kept, whole records, byte exact")
+
+    vblock = str(max(1, os.path.getsize(fq16) // (4 * MIB)))
+    run_cli(["zip", fq16, "--biopsy", "2", "--vblock", vblock, "--device",
+             "cuda"], True)
+    run_cli(["zip", fq16, "-o", fq16 + ".vb.gxz", "--vblock", vblock,
+             "--device", "cuda", "-q"])
+    vb2 = run_cli(["cat", fq16 + ".vb.gxz", "--one-vb", "2", "--device",
+                   "cuda"], True)
+    with open(fq16 + ".vb2", "rb") as f:
+        if f.read() != vb2 or not vb2:
+            raise SystemExit("tools: --biopsy 2 differs from VB 2")
+    log(f"tools: --biopsy 2 at --vblock {vblock} equals VB 2 ({len(vb2)} "
+        f"bytes)")
+
+    shims = j(tmp, "bin")
+    os.makedirs(shims, exist_ok=True)
+    with open(j(shims, "samtools"), "w") as f:
+        f.write(f"#!/bin/sh\nexec /bin/cat {b}\n")
+    os.chmod(j(shims, "samtools"), 0o755)
+    cram = j(tmp, "in.cram")
+    with open(cram, "wb") as f:
+        f.write(b"opaque")
+    path = os.environ["PATH"]
+    os.environ["PATH"] = shims + os.pathsep + path
+    try:
+        run_cli(["zip", cram, "-o", cram + ".gxz", "--device", "cuda", "-q"])
+    finally:
+        os.environ["PATH"] = path
+    run_cli(["unzip", cram + ".gxz", "-o", cram + ".sam", "--device",
+             "cuda"])
+    if not same_file(b, cram + ".sam"):
+        raise SystemExit("tools: the .cram input's archive does not unzip "
+                         "to the SAM text samtools printed")
+    log("tools: a .cram input read through a samtools shim: its archive "
+        "unzips to the SAM text")
+    for p in (a, a + ".gxz", keep, b, tar, cut, cut + ".gxz", cut + ".out",
+              fq16 + ".vb2", fq16 + ".vb.gxz", cram, cram + ".gxz",
+              cram + ".sam"):
+        os.remove(p)
+
+
 def slot_to_symbol(freq):
     """Slot->symbol bytes per (freq) row that sums to 4096, 0 elsewhere: the
     table the decoder took before the packed slot entries (its copy in
@@ -1578,7 +2014,7 @@ def ab_cfg3(parent, change, smi):
 
 
 PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5", "cfg5x",
-          "cfg1")
+          "cfg1", "tools")
 
 
 def main(argv=None):
@@ -1611,7 +2047,7 @@ def main(argv=None):
         phase_s[name] = time.time() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return res
-    from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.ops import aes_cuda, rans_cuda
 
     # 1. setup
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1629,10 +2065,11 @@ def main(argv=None):
                 or "Compiling entry" in line:
             log("  ptxas:", line.strip())
     rans_cuda.lib()
+    aes_cuda.lib()
 
     rng = np.random.default_rng(2024)
     meas, counts3, counts4, counts5, counts8 = {}, None, None, None, None
-    counts1 = counts2 = None
+    counts1 = counts2 = rates3 = fq3 = None
     with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp, \
             contextlib.ExitStack() as stack:
         inputs = InputWriter(tmp, phases)
@@ -1646,8 +2083,9 @@ def main(argv=None):
         t = time.time()
         inputs.wait()
         log(f"inputs of phases 7-9 ready; waited {time.time() - t:.1f} s")
-        if "cfg3" in phases:
-            counts3 = timed("cfg3", phase_cfg3, tmp, smi)      # 3 and 4
+        if "cfg3" in phases:                            # 3 and 4
+            counts3, rates3, fq3 = timed("cfg3", phase_cfg3, tmp, smi, 128,
+                                         32, "tools" in phases)
         if "cfg4" in phases:
             counts4 = timed("cfg4", phase_cfg4, tmp, smi)      # 6
         if "cfg5" in phases:
@@ -1656,12 +2094,15 @@ def main(argv=None):
             counts8 = timed("cfg5x", phase_cfg5x, tmp, smi, files5)  # 8
         if "cfg1" in phases:
             counts1, counts2 = timed("cfg1", phase_cfg1, tmp, smi)   # 9
+        if "tools" in phases:                                         # 10
+            aes, counts10 = timed("tools", phase_tools, tmp, smi, fq3,
+                                  rates3)
     log(f"phases {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", total {time.time() - t_start:.1f} s since setup")
-    if "jax" in sys.modules or any(
-            k == "genozip_tpu" or k.startswith("genozip_tpu.")
-            for k in sys.modules):
-        raise SystemExit("jax or the JAX package genozip_tpu was imported")
+    if any(k.split(".")[0] in ("jax", "genozip_tpu", "cryptography")
+           for k in sys.modules):
+        raise SystemExit("jax, the JAX package genozip_tpu or cryptography "
+                         "was imported")
     if set(phases) != set(PHASES):
         log(f"partial run of phases {phases}: passed; no result lines")
         return 0
@@ -1682,7 +2123,25 @@ def main(argv=None):
                      "launches_cfg5": counts5[name],
                      "launches_deep": counts8[name],
                      "launches_cfg1": counts1[name],
-                     "launches_cfg2": counts2[name]})
+                     "launches_cfg2": counts2[name],
+                     "launches_tools": counts10[name]})
+    err, ms, pms, nbytes, bms, by = aes[64 * MIB]
+    rows.append({"name": "aes256_ctr", "route": "cuda",
+                 "source": "genozip_tpu_torch/csrc/aes.cu",
+                 "replaces": "genozip_tpu/native/gxz_native.cpp:1244",
+                 "launches": counts10["aes256_ctr"], "max_abs_err": err,
+                 "ms": round(ms, 4), "plain_ms": round(pms, 4),
+                 "bound_ms": round(bms, 6), "bound_by": by,
+                 "library_ms": None, "port_kernel": "aes256_ctr",
+                 "entry": "genozip_tpu_torch.ops.aes_cuda.aes256_ctr",
+                 "tpu_kernel": None,
+                 "note": "no TPU kernel: genozip_tpu runs AES-256-CTR in "
+                         "host C++",
+                 "shape": "64 MiB", "bytes": nbytes,
+                 "ms_1mib": round(aes[MIB][1], 4),
+                 "plain_ms_1mib": round(aes[MIB][2], 4),
+                 "bound_ms_1mib": round(aes[MIB][4], 6),
+                 "launches_tools": counts10["aes256_ctr"]})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,20 +5,24 @@ file's name and first bytes do not); `zip --make-reference` for FASTA, `zip
 --deep` (a BAM with its FASTQs) and `zip --bamass`; `cat` translates SAM
 and BAM archives (--sam, --bam [--index], --cram), counts their reads
 (--coverage, --idxstats), and translates a 23andMe archive to VCF (--vcf).
+Archives are encrypted with --password (AES-256-CTR); `zip --best` widens
+the codec trials (BWT among them), `--md5` stores the input's MD5,
+`--truncate` accepts an input cut mid-record, `--tar FILE` writes one
+archive per input into a tar file, `--replace` removes the inputs once the
+archive verified, and `--biopsy N` writes VB N's text. Inputs may be URLs
+(curl or wget) or .cram, .bcf and .ora files (samtools, bcftools, orad).
 
 Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
-where the rANS kernels run: `cuda` (default; raises when no GPU is present)
-or `cpu` (the kernels' plain PyTorch versions). The archive bytes are the
-same either way. Options of the reference whose paths are not ported yet
-raise "not yet ported". GXZ_REFERENCE names the reference when --reference
-is not given. `cat -o FILE` writes what `cat` prints to FILE.
+where the rANS and AES kernels run: `cuda` (default; raises when no GPU is
+present) or `cpu` (the kernels' plain PyTorch versions). The archive bytes
+are the same either way. Options of the reference whose paths are not
+ported yet (--dp, --mesh, --hosts) are not offered. GXZ_REFERENCE names the
+reference when --reference is not given. `cat -o FILE` writes what `cat`
+prints to FILE.
 """
 
 import argparse
 import os
-
-# cat options of genozip_tpu whose paths this package has not ported yet
-_CAT_NOT_PORTED = ("password",)
 
 
 def _device_arg(p):
@@ -71,6 +75,22 @@ def build_parser():
     z.add_argument("--deep", action="store_true",
                    help="co-compress a BAM (the first input) with its "
                         "FASTQ(s)")
+    z.add_argument("--password", default=None,
+                   help="encrypt with AES-256")
+    z.add_argument("--md5", action="store_true",
+                   help="also store the input's MD5 (checked by unzip)")
+    z.add_argument("--truncate", action="store_true",
+                   help="accept an input cut mid-record (the cut record is "
+                        "dropped)")
+    z.add_argument("--best", action="store_true",
+                   help="favor ratio: wider codec trials, larger samples")
+    z.add_argument("--replace", action="store_true",
+                   help="remove the input(s) after the archive verified "
+                        "(implies --test)")
+    z.add_argument("--tar", default=None,
+                   help="write one archive per input into this tar file")
+    z.add_argument("--biopsy", type=int, default=None,
+                   help="write VB N's raw text to INPUT.vbN and stop")
     _device_arg(z)
 
     u = sub.add_parser("unzip", help="decompress")
@@ -79,6 +99,7 @@ def build_parser():
     u.add_argument("--test", action="store_true", help="verify only")
     u.add_argument("--show-time", action="store_true")
     u.add_argument("--reference", default=None)
+    u.add_argument("--password", default=None)
     _device_arg(u)
 
     c = sub.add_parser("cat", help="decompress to stdout")
@@ -133,7 +154,7 @@ def build_parser():
     c.add_argument("--vcf", action="store_true",
                    help="translate a 23andMe archive to VCF (needs "
                         "--reference)")
-    c.add_argument("--password", default=None, help=argparse.SUPPRESS)
+    c.add_argument("--password", default=None)
     _device_arg(c)
 
     l = sub.add_parser("ls", help="list archive metadata")
@@ -160,18 +181,16 @@ def main(argv=None):
     elif args.cmd == "unzip":
         from .piz_pipeline import piz_file
         if args.test:
-            piz_file(args.input, None, reference=args.reference)
+            piz_file(args.input, None, reference=args.reference,
+                     password=args.password)
             print("verified: round-trip digest OK")
             return 0
         out = args.output or args.input.removesuffix(".gxz")
         if out == args.input:
             out = args.input + ".out"
-        piz_file(args.input, out, reference=args.reference)
+        piz_file(args.input, out, reference=args.reference,
+                 password=args.password)
     elif args.cmd == "cat":
-        unported = [f for f in _CAT_NOT_PORTED if getattr(args, f)]
-        if unported:
-            raise NotImplementedError(
-                f"cat --{unported[0]}: not yet ported to genozip_tpu_torch")
         from .filters import cat
         cat(args)
     elif args.cmd == "ls":
@@ -194,24 +213,54 @@ def _zip(args):
         raise ValueError("--pair needs two FASTQ inputs")
     if args.deep and not args.input2:
         raise ValueError("--deep needs a BAM plus FASTQ input(s)")
-    if args.input2 and not (args.pair or args.deep):
-        raise NotImplementedError(
-            "zip of more than one input: not yet ported to genozip_tpu_torch")
+    if args.input2 and not (args.pair or args.deep or args.tar):
+        raise ValueError("more than one input needs --pair, --deep or --tar")
     if args.pair and args.store_ref:
         # genozip_tpu's zip_pair drops --REFERENCE without a word and writes
         # an archive that still needs the .ref file
         raise ValueError("--REFERENCE is not supported with --pair")
-    from .zip_pipeline import zip_deep, zip_file, zip_pair
+    together = "pair" if args.pair else "deep" if args.deep else None
+    for opt in ("password", "md5"):
+        if together and getattr(args, opt) and not args.tar:
+            # genozip_tpu's zip_pair and zip_deep take neither option and
+            # write a plain archive without a word (fault F14)
+            raise ValueError(f"--{opt} is not supported with --{together} "
+                             "(fault F14)")
+    from .codecs import assign as _assign
+    mode = _assign.get_mode()
     if args.fast:
-        from .codecs import assign as _assign
         _assign.set_mode("fast")
+    elif args.best:
+        _assign.set_mode("best")
+    try:
+        _zip_inputs(args)
+    finally:
+        _assign.set_mode(mode)
+
+
+def _zip_inputs(args):
+    from .zip_pipeline import zip_deep, zip_file, zip_pair
     out = args.output or args.input + ".gxz"
     vb = (args.vblock * (1 << 20)) if args.vblock else None
+    if args.biopsy is not None:
+        from .biopsy import biopsy_take
+        path = biopsy_take(args.input, args.biopsy, dt_name=args.dt,
+                           vb_size=vb)
+        print(f"biopsy: VB {args.biopsy} -> {path}")
+        return
+    if args.tar:
+        _zip_tar(args, vb)
+        return
     if args.deep:
         zip_deep(args.input, list(args.input2), out, vb_size=vb,
                  show_stats=args.stats, reference=args.reference,
                  threads=args.threads)
-    elif args.pair:
+        if args.test:
+            from .piz_pipeline import piz_file
+            piz_file(out, None, reference=args.reference)
+            print("verified: round-trip digest OK")
+        return
+    if args.pair:
         zip_pair(args.input, args.input2[0], out, vb_size=vb,
                  show_stats=args.stats, reference=args.reference,
                  threads=args.threads, optimize=args.optimize)
@@ -219,11 +268,37 @@ def _zip(args):
         zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
                  threads=args.threads, reference=args.reference,
                  store_ref=args.store_ref, optimize=args.optimize,
-                 bamass=args.bamass, dt_name=args.dt)
-    if args.test:
+                 bamass=args.bamass, dt_name=args.dt,
+                 password=args.password, use_md5=args.md5,
+                 truncate=args.truncate)
+    if args.test or args.replace:
         from .piz_pipeline import piz_file
-        piz_file(out, None, reference=args.reference)
+        piz_file(out, None, reference=args.reference, password=args.password)
         print("verified: round-trip digest OK")
+    if args.replace:
+        # the inputs go only after the archive's digest verified above
+        for path in [args.input, *args.input2]:
+            os.unlink(path)
+
+
+def _zip_tar(args, vb):
+    """--tar: each input's own archive (the options genozip_tpu passes
+    there: --input-type, --vblock, --reference, --password, --md5) as a
+    member named after the input."""
+    import tarfile
+    import tempfile
+    from .zip_pipeline import zip_file
+    inputs = [args.input, *args.input2]
+    tmp_dir = os.path.dirname(os.path.abspath(args.tar))
+    with tarfile.open(args.tar, "w") as tf:
+        for inp in inputs:
+            with tempfile.NamedTemporaryFile(suffix=".gxz",
+                                             dir=tmp_dir) as tmp:
+                zip_file(inp, tmp.name, dt_name=args.dt, vb_size=vb,
+                         reference=args.reference, password=args.password,
+                         use_md5=args.md5)
+                tf.add(tmp.name, arcname=inp.rsplit("/", 1)[-1] + ".gxz")
+    print(f"tar: {len(inputs)} archive(s) -> {args.tar}")
 
 
 def _ls(args):
@@ -240,6 +315,9 @@ def _ls(args):
             print(f"{h.get('txt_name', path):30s} {h['dt']:8s} "
                   f"{h['txt_len']:>14,} {zlen:>14,} "
                   f"{h['txt_len'] / max(zlen, 1):>6.1f}x {h['num_lines']:>12,}")
+            if args.stats and h.get("enc"):
+                raise ValueError(f"ls --stats: {path} is encrypted, and so "
+                                 "is its stats section")
             if args.stats:
                 payload, _ = zr.read_one(fmt.SEC_STATS)
                 if payload is not None:

@@ -41,7 +41,7 @@ DOMQ = 11     # dominant-symbol quality: RLE'd dom-mask + rANS'd exceptions
 STRIPE4 = 12  # 4-byte-plane transpose then order-1 rANS (u32/f32 arrays)
 ARITH0 = 13   # wide-interleaved adaptive range coder, order-0
 ARITH1 = 14   # order-1 (context = previous byte)
-BWT = 15      # block-sorting + adaptive coder (not ported yet)
+BWT = 15      # block-sorting + adaptive coder (codecs/bwt.py)
 ACGT_LZ = 16  # 2-bit pack + LZMA-1 over the packed stream
 
 NAMES = {NONE: "NONE", RANS0: "RANS0", RANS1: "RANS1", PACK0: "PACK0",
@@ -70,6 +70,12 @@ def enable_device_rans(device, min_size: int = 256 * 1024):
 def disable_device_rans():
     global _device, _min_size
     _device, _min_size = None, _OFF
+
+
+def device():
+    """The kernels' device (None: host coders only, and the plain AES on the
+    CPU)."""
+    return _device
 
 
 def device_batch_min() -> int:
@@ -257,11 +263,6 @@ def _stripe4_decode(blob) -> bytes:
     return a.tobytes() + tail
 
 
-def _not_ported(codec):
-    return NotImplementedError(f"codec {NAMES.get(codec, codec)}: not yet "
-                               "ported to genozip_tpu_torch")
-
-
 def compress(data: bytes, codec: int) -> bytes:
     if codec == NONE:
         return bytes(data)
@@ -296,7 +297,8 @@ def compress(data: bytes, codec: int) -> bytes:
     if codec == ARITH1:
         return arith_np.encode(data, order=1)
     if codec == BWT:
-        raise _not_ported(codec)
+        from . import bwt
+        return bwt.compress(bytes(data), ARITH1)
     raise ValueError(f"unknown codec {codec}")
 
 
@@ -328,7 +330,8 @@ def decompress(blob, codec: int, uncomp_len: int) -> bytes:
     elif codec in (ARITH0, ARITH1):
         out = arith_np.decode(blob)
     elif codec == BWT:
-        raise _not_ported(codec)
+        from . import bwt
+        out = bwt.decompress(blob)
     else:
         raise ValueError(f"unknown codec {codec}")
     if len(out) > uncomp_len and codec in (RANS0, RANS1, DELTA_RANS):

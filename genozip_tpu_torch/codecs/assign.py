@@ -33,6 +33,10 @@ def set_mode(mode: str):
     _mode = mode
 
 
+def get_mode() -> str:
+    return _mode
+
+
 def candidates_for(data: np.ndarray, category: str):
     """Candidate codec list by payload category ('seq', 'qual', 'b250',
     'int', 'text')."""

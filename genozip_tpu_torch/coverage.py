@@ -26,7 +26,8 @@ def show_coverage(args, out):
     """Write the table to `out` (a binary file)."""
     refuse_filters(args, "--idxstats" if getattr(args, "idxstats", False)
                    else "--coverage")
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     try:
         dt = pr.file_hdr["dt"]
         if dt not in ("sam", "bam"):

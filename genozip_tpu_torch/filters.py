@@ -92,7 +92,8 @@ def cat(args):
 
 
 def cat_filtered(args, out):
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     try:
         _cat(pr, args, out)
     finally:
@@ -274,7 +275,8 @@ def cat_translated_sam(args, out):
     """BAM archive -> SAM text (reference parity: genocat --sam,
     src/data_types.h:253-259)."""
     refuse_filters(args, "--sam")
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     try:
         if pr.file_hdr["dt"] != "bam":
             raise ValueError("--sam translation needs a BAM archive")
@@ -297,7 +299,8 @@ def cat_translated_bam(args, out, out_path):
     index = getattr(args, "index", False)
     if index and not out_path:
         raise ValueError("--index needs --bam -o FILE")
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     try:
         if pr.file_hdr["dt"] != "sam":
             raise ValueError("--bam translation needs a SAM archive")
@@ -329,7 +332,8 @@ def cat_translated_vcf(args, out):
     """23andMe archive -> VCF (reference parity: genocat --vcf on ME23,
     src/data_types.h:262); the REF base comes from the reference genome."""
     refuse_filters(args, "--vcf")
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     try:
         if pr.file_hdr["dt"] != "me23":
             raise ValueError("--vcf translation needs a 23andMe archive")
@@ -360,7 +364,8 @@ def cat_translated_cram(args, out_path):
     if getattr(args, "cram_ref", None):
         argv += ["-T", args.cram_ref]
     argv.append("-")
-    pr = PizReader(args.input, getattr(args, "reference", None))
+    pr = PizReader(args.input, getattr(args, "reference", None),
+                   getattr(args, "password", None))
     dt = pr.file_hdr["dt"]
     pr.close()
     if dt not in ("sam", "bam"):

@@ -22,7 +22,7 @@ import zlib
 
 import numpy as np
 
-from .. import codecs
+from .. import codecs, crypt
 
 MAGIC = 0x315A5847  # "GXZ1"
 TAIL_MAGIC = b"GXZfoot1"
@@ -118,6 +118,12 @@ class ZWriter:
         self.f = fileobj
         self.offset = 0
         self.index = []
+        self.crypt_key = None
+        self.crypt_salt = None
+
+    def set_encryption(self, key: bytes, salt: bytes):
+        """Encrypt every later section but FILE_HEADER (--password)."""
+        self.crypt_key, self.crypt_salt = key, salt
 
     def write_section(self, sec_type, payload: bytes, *, codec=codecs.NONE,
                       vb_i=0, comp_i=-1, dict_id=b"", ltype=LT_TXT, param=0,
@@ -130,6 +136,10 @@ class ZWriter:
             uncomp_len = len(payload)
             comp = codecs.compress(payload, codec)
         adl = zlib.adler32(comp) & 0xFFFFFFFF  # over plaintext-compressed
+        if self.crypt_key is not None and sec_type != SEC_FILE_HEADER:
+            comp = crypt.crypt_payload(self.crypt_key, self.crypt_salt,
+                                       self.offset, comp, codecs.device())
+            flags |= crypt.FLAG_ENCRYPTED
         did = norm_dict_id(dict_id)
         hdr = _HDR.pack(MAGIC, sec_type, codec, flags, ltype, vb_i, comp_i,
                         did, uncomp_len, len(comp), param, adl)
@@ -169,6 +179,11 @@ class ZReader:
         idx_raw = zlib.decompress(self.f.read(idx_len))
         self.index = [SectionEnt(*_IDX.unpack(idx_raw[i:i + _IDX.size]))
                       for i in range(0, len(idx_raw), _IDX.size)]
+        self.crypt_key = None
+        self.crypt_salt = None
+
+    def set_encryption(self, key: bytes, salt: bytes):
+        self.crypt_key, self.crypt_salt = key, salt
 
     def sections(self, sec_type=None, vb_i=None, comp_i=None):
         out = self.index
@@ -181,8 +196,8 @@ class ZReader:
         return out
 
     def read_section_raw(self, ent: SectionEnt):
-        """Returns (compressed_bytes, header_dict) — digest-checked, NOT
-        decompressed (batched device decoding decompresses
+        """Returns (compressed_bytes, header_dict) — decrypted and digest-
+        checked, NOT decompressed (batched device decoding decompresses
         many sections in one kernel launch)."""
         self.f.seek(ent.offset)
         hdr = _HDR.unpack(self.f.read(HDR_SIZE))
@@ -191,11 +206,14 @@ class ZReader:
         if magic != MAGIC:
             raise ValueError("corrupt section header")
         comp = self.f.read(comp_len)
-        if flags & 2:  # FLAG_ENCRYPTED
-            raise NotImplementedError("encrypted archive: not yet ported to "
-                                      "genozip_tpu_torch")
+        if flags & crypt.FLAG_ENCRYPTED:
+            if self.crypt_key is None:
+                raise ValueError("archive is encrypted — password required")
+            comp = crypt.crypt_payload(self.crypt_key, self.crypt_salt,
+                                       ent.offset, comp, codecs.device())
         if (zlib.adler32(comp) & 0xFFFFFFFF) != adler:
-            raise ValueError(f"section digest mismatch at {ent!r}")
+            raise ValueError(f"section digest mismatch at {ent!r} (wrong "
+                             "password?)")
         meta = dict(sec_type=sec_type, codec=codec, flags=flags, ltype=ltype,
                     vb_i=vb_i, comp_i=comp_i, dict_id=did, param=param,
                     comp_len=comp_len, uncomp_len=uncomp_len)

@@ -53,8 +53,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> source; rans_micro holds microbenchmarks that only
-# chip_smoke.py builds and runs
-SOURCES = {"rans": "rans.cu", "rans_micro": "rans_micro.cu"}
+# chip_smoke.py builds and runs; aes is the AES-256-CTR kernel (aes_cuda.py)
+SOURCES = {"rans": "rans.cu", "rans_micro": "rans_micro.cu", "aes": "aes.cu"}
 
 KERNELS = ("rans_encode_o0", "rans_decode_o0", "rans_encode_o1",
            "rans_decode_o1")
@@ -65,7 +65,7 @@ _lib = None
 
 
 class DeviceKernelError(RuntimeError):
-    """The rANS kernel route failed on the card."""
+    """A kernel route (rANS, or AES in aes_cuda.py) failed on the card."""
 
 
 def reset_launches():

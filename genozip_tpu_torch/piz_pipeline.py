@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import codecs
+from . import codecs, crypt
 from .contexts import PCtx, parse_dict_payload
 from .datatypes import get
 from .deep import DeepIndex
@@ -72,24 +72,33 @@ def _stored_ref(payload: bytes) -> RefGenome:
 class PizReader:
     """An open archive. `reference` is the .ref.gxz to reconstruct against;
     it is needed only when the archive was made with --reference and stores
-    no genome ranges, and only once a VB is reconstructed."""
+    no genome ranges, and only once a VB is reconstructed. `password` opens
+    an encrypted archive: its sections decrypt as they are read."""
 
-    def __init__(self, z_path: str, reference: str | None = None):
+    def __init__(self, z_path: str, reference: str | None = None,
+                 password: str | None = None):
         self.f = open(z_path, "rb")
         try:
-            self._open(reference)
+            self._open(reference, password)
         except BaseException:
             self.f.close()
             raise
 
-    def _open(self, reference):
+    def _open(self, reference, password):
         self.zr = fmt.ZReader(self.f)
         payload, _ = self.zr.read_one(fmt.SEC_FILE_HEADER)
         if payload is None:
             raise ValueError("missing file header")
         self.file_hdr = h = fmt.json_parse(payload)
-        if h.get("enc"):
-            raise _not_ported("encrypted archive")
+        enc = h.get("enc")
+        if enc:
+            if not password:
+                raise ValueError("archive is encrypted — --password required")
+            salt = bytes.fromhex(enc["salt"])
+            key = crypt.derive_key(password, salt)
+            if crypt.key_tag(key) != enc["tag"]:
+                raise ValueError("wrong password")
+            self.zr.set_encryption(key, salt)
         if h.get("components") and not (h.get("pair") or h.get("deep")):
             raise _not_ported("multi-component archive")
         ref = None
@@ -403,11 +412,12 @@ class _GcQueue:
 
 
 def piz_file(z_path: str, out_path: str | None = None,
-             reference: str | None = None) -> int:
+             reference: str | None = None, password: str | None = None) -> int:
     """Reconstruct the archive's file into `out_path` (None: verify only);
     the components of a paired or deep archive go to `out_path`.1,
-    `out_path`.2, ... Returns the bytes reconstructed."""
-    pr = PizReader(z_path, reference)
+    `out_path`.2, ...; `password` opens an encrypted archive. Returns the
+    bytes reconstructed."""
+    pr = PizReader(z_path, reference, password)
     try:
         comps = pr.components()
         total = 0

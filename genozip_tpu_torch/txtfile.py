@@ -1,8 +1,8 @@
 """Input text-file reading: VBlock chunking with record-boundary alignment.
 
 genozip_tpu_torch's own copy of genozip_tpu/txtfile.py. URL inputs and
-inputs read through external tools (.cram, .bcf, .ora) are not ported yet
-and raise. Reference parity: src/txtfile.c:1228 txtfile_read_vblock (unconsumed-tail
+inputs read through external tools (.cram, .bcf, .ora) come through the
+bridges of `stream`. Reference parity: src/txtfile.c:1228 txtfile_read_vblock (unconsumed-tail
 handoff), src/mgzip.c (gz-family inflation — here the Python stdlib gz/bz2/xz
 decompressors feed the chunker; BGZF-exact re-emission is a later milestone).
 """
@@ -20,10 +20,12 @@ DEFAULT_VB_SIZE = 16 * 1024 * 1024
 def open_input(path: str):
     if path == "-":
         return io.BufferedReader(io.FileIO(0, "r", closefd=False))
-    if path.startswith(("http://", "https://", "ftp://")) or \
-            path.endswith((".cram", ".bcf", ".ora")):
-        raise NotImplementedError(f"input {path}: not yet ported to "
-                                  "genozip_tpu_torch")
+    if path.startswith(("http://", "https://", "ftp://")):
+        from .stream import url_reader
+        return url_reader(path)
+    if path.endswith((".cram", ".bcf", ".ora")):
+        from .stream import external_reader
+        return external_reader(path)[0]
     if path.endswith((".gz", ".bgz", ".bam")):
         # BGZF gets a block-aware reader that records per-block isizes for
         # byte-exact re-emission (reference src/mgzip.c)

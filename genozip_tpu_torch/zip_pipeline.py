@@ -37,6 +37,7 @@ Reference parity: src/zip.c:721 zip_one_file / :510 zip_compress_one_vb.
 """
 
 import copy
+import hashlib
 import os
 import time
 import zlib
@@ -45,7 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import codecs
+from . import codecs, crypt
 from .bamass import build_index as build_bamass_index
 from .codecs import assign as codec_assign
 from .contexts import MODE_NUM, VBCtx, ZCtxGlobal, narrow_int
@@ -280,10 +281,12 @@ class ZipJob:
         self.stats.z_len = zw.offset
 
 
-def _open_component(in_path, reference=None, dt_name=None, ref=None):
+def _open_component(in_path, reference=None, dt_name=None, ref=None,
+                    truncate=False):
     """Open one input: (reader, datatype instance, datatype name). The
-    reference genome is `ref` when given, else loaded from `reference`."""
-    reader = TxtReader(in_path)
+    reference genome is `ref` when given, else loaded from `reference`;
+    `truncate` accepts an input cut mid-record (its cut tail is dropped)."""
+    reader = TxtReader(in_path, truncate=truncate)
     try:
         head = reader.peek(64 * 1024)
         dt_name = dt_name or detect(in_path, head)
@@ -309,16 +312,21 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
              show_stats: bool = False, threads: int | None = None,
              reference: str | None = None, store_ref: bool = False,
              optimize: bool = False, bamass: str | None = None,
-             dt_name: str | None = None):
+             dt_name: str | None = None, password: str | None = None,
+             use_md5: bool = False, truncate: bool = False):
     """Compress one file of any datatype, detected from its name and first
     bytes unless `dt_name` (--input-type) names it, against `reference` (a
     .ref.gxz) if given; `store_ref` also stores the genome ranges used
     (--REFERENCE); `bamass` names a BAM whose alignments place the FASTQ's
-    reads. The rANS device is whatever `codecs.enable_device_rans` set (host
-    coders only if nothing)."""
+    reads. `password` encrypts every section but the file header
+    (AES-256-CTR); `use_md5` adds the input's MD5 to the file header;
+    `truncate` accepts an input cut mid-record. The device of the rANS and
+    AES kernels is whatever `codecs.enable_device_rans` set (host coders
+    and the CPU if nothing)."""
     if bamass and not reference:
         raise ValueError("--bamass needs --reference")
-    reader, dt, dt_name = _open_component(in_path, reference, dt_name)
+    reader, dt, dt_name = _open_component(in_path, reference, dt_name,
+                                          truncate=truncate)
     try:
         dt.optimize_enabled = optimize
         if store_ref and getattr(dt, "ref", None) is not None:
@@ -330,8 +338,10 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
             vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
         job = ZipJob(out_path)
         try:
+            enc = _setup_encryption(job, password)
             _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
-                      reference, store_ref)
+                      reference, store_ref, enc,
+                      hashlib.md5() if use_md5 else None, truncate)
         finally:
             job.out.close()
     finally:
@@ -341,12 +351,25 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
     return job.stats
 
 
+def _setup_encryption(job, password):
+    """--password: a new salt and the key derived from it; returns the file
+    header's `enc` entry (the salt and the key's tag), or None."""
+    if not password:
+        return None
+    salt = crypt.new_salt()
+    key = crypt.derive_key(password, salt)
+    job.zw.set_encryption(key, salt)
+    return {"salt": salt.hex(), "tag": crypt.key_tag(key)}
+
+
 def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
-              reference, store_ref):
+              reference, store_ref, enc, md5, truncate):
     txt_header = dt.read_txt_header(reader)
     file_adler = zlib.adler32(b"")
     if txt_header:
         file_adler = zlib.adler32(txt_header, file_adler)
+        if md5:
+            md5.update(txt_header)
         codec = codec_assign.assign_best(txt_header, "text")
         job.zw.write_section(fmt.SEC_TXT_HEADER, txt_header, codec=codec, comp_i=0)
         job.stats.txt_len += len(txt_header)
@@ -388,7 +411,7 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
     # = determinism). REF_INTERNAL: VB n's seg populates the genome VB n+1
     # diffs against, and PIZ replays that order, so seg stays sequential.
     workers = 1 if iref is not None else (threads or os.cpu_count() or 2)
-    gencomp = _Gencomp(dt, dt_name, in_path, vb_size)
+    gencomp = _Gencomp(dt, dt_name, in_path, vb_size, truncate)
     vb_i = 0
     with ThreadPoolExecutor(max_workers=workers) as pool:
         def seg_one(data):
@@ -412,8 +435,10 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
             prog.update(int(pdata.shape[0]))
 
         for data in reader.vblocks(dt, vb_size):
-            # the digest covers the original stream, before deportation
+            # the digests cover the original stream, before deportation
             file_adler = zlib.adler32(data, file_adler)
+            if md5:
+                md5.update(data)
             with profiler.timer("zip:gencomp-split"):
                 data, gcpos = gencomp.split(data)
             inflight.append((data, pool.submit(seg_one, data), gcpos))
@@ -447,8 +472,8 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
         "reference": reference.rsplit("/", 1)[-1] if reference else None,
         "ref_internal": ref_internal,
         "ref_stored": ref_stored,
-        "enc": None,
-        "md5": None,
+        "enc": enc,
+        "md5": md5.hexdigest() if md5 else None,
         "mgzip": mgzip,
         "gencomp": gencomp_hdr,
     }
@@ -463,8 +488,9 @@ class _Gencomp:
     written as component 1 and DEPN, compressed against the SAG store
     built from PRIM, as component 2."""
 
-    def __init__(self, dt, dt_name, in_path, vb_size):
+    def __init__(self, dt, dt_name, in_path, vb_size, truncate=False):
         self.dt = dt
+        self.truncate = truncate
         self.prim_parts = []
         self.depn_parts = []
         self.depn_qnames = None
@@ -482,7 +508,7 @@ class _Gencomp:
 
     def _prescan(self, in_path, vb_size):
         try:
-            r2 = TxtReader(in_path)
+            r2 = TxtReader(in_path, truncate=self.truncate)
             try:
                 self.dt.read_txt_header(r2)
                 hs = [h for data in r2.vblocks(self.dt, vb_size)

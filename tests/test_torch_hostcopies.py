@@ -217,9 +217,16 @@ def test_read_fastq_records_equals(tmp_path):
         ref.close()
 
 
-def test_open_input_refuses_what_is_not_ported():
-    for path in ("https://example.org/r.fastq", "r.cram"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_open_input_refuses_what_is_not_ported(monkeypatch):
+    """URL and .cram inputs go to their bridges (`stream.py`); with no
+    tool on PATH each fails naming the tool, as genozip_tpu does, and starts
+    nothing."""
+    monkeypatch.setenv("PATH", "/nonexistent")
+    for path, tool in (("https://example.org/r.fastq", "curl or wget"),
+                       ("r.cram", "`samtools`")):
+        with pytest.raises(AssertionError, match=tool):
+            ref_txtfile.open_input(path)
+        with pytest.raises(FileNotFoundError, match=tool):
             txtfile.open_input(path)
 
 

@@ -1,12 +1,15 @@
 """genozip_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports the JAX package genozip_tpu (or jax), at the top of
-a file or inside a function; and a run of the port's commands in a fresh
-interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module and no `jax`
-in sys.modules. The SAM/BAM modules (sag, translate, datatypes/sam,
-sam_tags, bam), those of deep, bamass, coverage and regions, and the VCF,
-PBWT and text datatype modules are among the files walked, and SAM/BAM,
---deep, --bamass, VCF, `cat --vcf` and translation commands among the runs;
-on a card, SAM and BAM archives from `--device cuda` equal the cpu ones."""
+chip_smoke.py, imports the JAX package genozip_tpu (or jax, or the
+`cryptography` package that genozip_tpu's encryption may use), at the top
+of a file or inside a function; and a run of the port's commands in a fresh
+interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module, no `jax`
+and no `cryptography` in sys.modules. The SAM/BAM modules (sag, translate,
+datatypes/sam, sam_tags, bam), those of deep, bamass, coverage and
+regions, the VCF, PBWT and text datatype modules, and crypt, the AES
+binding, the BWT codec, biopsy and stream are among the files walked, and
+SAM/BAM, --deep, --bamass, VCF, `cat --vcf`, translation, --password and
+--best commands among the runs; on a card, SAM and BAM archives from
+`--device cuda` equal the cpu ones."""
 
 import ast
 import json
@@ -26,7 +29,7 @@ SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")) + \
     ["chip_smoke.py"]
-FORBIDDEN = ("genozip_tpu", "jax")
+FORBIDDEN = ("genozip_tpu", "jax", "cryptography")
 
 
 def _forbidden(name: str) -> bool:
@@ -57,7 +60,9 @@ def test_sources_found():
               "datatypes/sam_tags.py", "datatypes/bam.py", "deep.py",
               "bamass.py", "coverage.py", "regions.py", "datatypes/vcf.py",
               "ops/pbwt.py", "datatypes/tabular.py", "datatypes/gff.py",
-              "datatypes/fasta.py", "datatypes/generic.py"):
+              "datatypes/fasta.py", "datatypes/generic.py", "crypt.py",
+              "ops/aes_cuda.py", "ops/aes_torch.py", "codecs/bwt.py",
+              "biopsy.py", "stream.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
@@ -100,6 +105,8 @@ def inputs(tmp_path_factory):
                               str(d / "d.gxz"))
         zip_pipeline.zip_file(str(d / "v.vcf"), str(d / "v.gxz"))
         zip_pipeline.zip_file(str(d / "m.txt"), str(d / "m.gxz"))
+        zip_pipeline.zip_file(str(d / "r.fastq"), str(d / "e.gxz"),
+                              password="pw", use_md5=True)
     finally:
         codecs.disable_device_rans()
     return d
@@ -139,13 +146,22 @@ RUNS = {
     "unzip_vcf": ["unzip", "{d}/v.gxz", "-o", "{t}/v.vcf", "--device", "cpu"],
     "cat_vcf": ["cat", "{d}/m.gxz", "--vcf", "--reference", "{d}/c1.ref.gxz",
                 "-o", "{t}/m.vcf", "--device", "cpu"],
+    "zip_password_md5": ["zip", "{d}/r.fastq", "-o", "{t}/e.gxz",
+                         "--password", "pw", "--md5", "--device", "cpu",
+                         "-q"],
+    "unzip_password": ["unzip", "{d}/e.gxz", "-o", "{t}/r.out", "--password",
+                       "pw", "--device", "cpu"],
+    "cat_password": ["cat", "{d}/e.gxz", "--head", "3", "--password", "pw",
+                     "--device", "cpu"],
+    "zip_best": ["zip", "{d}/v.vcf", "-o", "{t}/b.gxz", "--best", "--device",
+                 "cpu", "-q"],
 }
 SCRIPT = """
 import json, sys
 from genozip_tpu_torch.cli import main
 rc = main(json.loads(sys.argv[1]))
-loaded = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
-                or k == "genozip_tpu" or k.startswith("genozip_tpu."))
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in
+                ("jax", "genozip_tpu", "cryptography"))
 print("RESULT", json.dumps({"rc": rc, "loaded": loaded}))
 """
 
@@ -162,7 +178,7 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
     line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")]
     got = json.loads(line[-1][len("RESULT "):])
     assert got == {"rc": 0, "loaded": []}
-    if case == "unzip":
+    if case in ("unzip", "unzip_password"):
         with open(tmp_path / "r.out", "rb") as a, \
                 open(inputs / "r.fastq", "rb") as b:
             assert a.read() == b.read()

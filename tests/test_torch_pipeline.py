@@ -196,13 +196,15 @@ def test_device_cuda_without_gpu_raises(archives):
                                   ["r2.fastq"],
                                   ["--deep", "--reference", "g.ref.gxz"]])
 def test_unported_zip_options_raise(archives, flag):
-    """More than one input without --pair or --deep is not ported; --deep
-    without its FASTQ inputs and --bamass without --reference are refused
-    before anything is read."""
+    """More than one input without --pair, --deep or --tar (genozip_tpu
+    zips the first and ignores the rest), --deep without its FASTQ inputs
+    and --bamass without --reference are refused before anything is
+    read."""
     d, fq, port, ref, _ = archives
     want = {"--deep": (ValueError, "needs a BAM plus FASTQ"),
             "--bamass": (ValueError, "needs --reference"),
-            "r2.fastq": (NotImplementedError, "not yet ported")}[flag[0]]
+            "r2.fastq": (ValueError, "needs --pair, --deep or --tar")
+            }[flag[0]]
     with pytest.raises(want[0], match=want[1]):
         cli.main(["zip", fq, "-o", str(d / "no.gxz"), "--device", "cpu"] + flag)
     codecs.disable_device_rans()
