@@ -8,7 +8,8 @@
 Phases, each printed on its own lines; any failure exits non-zero:
 
 1. setup: the card (nvidia-smi name and power limit), torch/CUDA versions,
-   and the nvcc builds of the kernels (csrc/rans.cu, csrc/aes.cu) and of the
+   and the nvcc builds of the kernels (csrc/rans.cu, csrc/aes.cu,
+   csrc/seed_align.cu) and of the
    rANS microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas'
    register and spill report.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
@@ -112,17 +113,35 @@ Phases, each printed on its own lines; any failure exits non-zero:
    archive), `--replace`, `--truncate` of a FASTQ cut mid-record,
    `--biopsy 2` against VB 2, and a .cram input read through a samtools
    shim.
+11. parallel, on phase 6's reference and R1 and phase 4's FASTQ and
+   archive: the seed_align kernel against its plain version on the card,
+   output for output, at edge reads (lengths 1, 15, 16, 17, Lb - 1 and Lb,
+   both strands, codes above 3) and at one cfg4 VB (49k reads of 150 bp,
+   Lb = 256), timed against its bound; `zip --reference --vblock 16` of the
+   64 MiB R1 with the host aligner, then with `--mesh 1`, each unzipped byte
+   for byte, with MB/s, ratio, `zip:align` seconds, the aligned share
+   (SQBITMAP; the mesh run's must be > 0.5) and seed_align's launches (> 0
+   with --mesh, 0 without); 16 MiB of it with --mesh the same bytes from
+   cuda and cpu; `zip --dp 2` of phase 4's FASTQ equal to phase 4's
+   archive; ShardedZipEncoder and ShardedPizDecoder on 4 x cuda:0 against
+   4 CPU devices; `piz_file_dp(dp=4)` of phase 4's archive byte for byte,
+   with MB/s; `zip --hosts 2` of 32 MiB of it (two worker processes on the
+   card) equal to zip_file's; the flagship step on the card equal to its
+   CPU run, and scaling_bench.py's line for one card. Every rANS kernel's
+   launches over the phase must be > 0.
 
-They run in the order 2, 2b, 5, 3-4, 6-10. The inputs of phases 7-9 are
+They run in the order 2, 2b, 5, 3-4, 6, 11, 7-10. The inputs of phases 7-9 are
 written in a child process (`InputWriter`, numpy on the host) while phases
 2, 2b and 5 keep the card busy; phase 3 starts when it is done. Each
 phase's seconds and the total are printed.
 
 Neither jax, nor any module of the JAX package genozip_tpu, nor
 cryptography may have been imported. The last two lines are a JSON object
-with the numbers of all sixteen TPU kernels' counterparts and of the AES
-kernel (time, plain time, bytes-or-operations bound, launches on the cfg4,
-cfg3, cfg5, deep, cfg1, cfg2 and phase 10 paths) and
+with the numbers of all sixteen TPU kernels' counterparts, of the AES
+kernel and of the seed aligner kernel (time, plain time, the bound: bytes
+at 3.35 TB/s or 32-bit integer operations at 16.7 T/s, whichever is
+larger; launches on the cfg4, cfg3, cfg5, deep, cfg1, cfg2, phase 10 and
+phase 11 paths; seed_align's on phase 11's --mesh run) and
 {"ok": true,
 "device": {...}}. Needs no network; writes under a temporary directory
 that it removes.
@@ -182,7 +201,9 @@ BAMASS_GENOME, CFG1_REF_BP = 4 << 20, 8 << 20
 ENTRY_LANES = (128, 256, 1024)
 QUALS = np.frombuffer(b"FFFFF:F,#AB!x", np.uint8)
 HBM_BPS = 3.35e12         # H100 SXM device memory, bytes/s
-ALU_OPS = 67e12           # H100 SXM float32 outside the tensor cores, op/s
+# H100 SXM 32-bit integer operations a second: 64 INT32 lanes an SM a clock
+# x 132 SMs x 1.98 GHz (the kernels' shifts, xors, adds, compares, lookups)
+INT_OPS = 16.7e12
 OPS_PER_SYMBOL = 10       # table lookup, multiply-add, compare, rank, store
 
 
@@ -240,11 +261,11 @@ def stream_bytes(datas, bufs, tab_bytes):
     return sum(map(len, datas)) + sum(map(len, bufs)) + tab_bytes
 
 
-def bound_ms(nbytes, symbols):
-    """Least time on the card: bytes over 3.35 TB/s against operations over
-    67 T/s (about ten 32-bit integer operations a symbol, at the
-    non-tensor-core float32 rate); returns (ms, "bytes" | "operations")."""
-    tb, to = nbytes / HBM_BPS * 1e3, symbols * OPS_PER_SYMBOL / ALU_OPS * 1e3
+def bound_ms(nbytes, ops):
+    """Least time on the card: bytes over 3.35 TB/s against 32-bit integer
+    operations over 16.7 T/s (INT_OPS); returns (ms, "bytes" |
+    "operations")."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / INT_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -352,7 +373,7 @@ def phase_kernels(rng):
             meas[(name, label)] = m
             mb = sum(map(len, datas)) / 1e6
             if label == "vb":
-                bms, by = bound_ms(m[3], m[4])
+                bms, by = bound_ms(m[3], m[4] * OPS_PER_SYMBOL)
                 log(f"kernel {name}: {ms:.3f} ms ({mb / ms:.2f} GB/s of "
                     f"symbols) at R=1, one {mb:.2f} MB VB stream (main path), "
                     f"plain {pms:.3f} ms, bound {bms:.6f} ms ({by}, "
@@ -583,9 +604,11 @@ class InputWriter:
             self.proc.join()
 
 
-def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False):
+def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False,
+               keep_archive=False):
     """Phases 3 and 4. Returns the launch counts of the full run, its zip
-    and unzip MB/s, and (with `keep`: phase 10 reuses it) the FASTQ."""
+    and unzip MB/s, and (with `keep`: phase 10 reuses it) the FASTQ; with
+    `keep_archive` its archive stays at FASTQ.gxz (phase 11 reuses it)."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     # 3. device equals host
@@ -631,13 +654,18 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise SystemExit(f"full run: kernels never launched: {missing}")
-    for p in (z, out) if keep else (fq, z, out):
+    for p in [out] + ([] if keep else [fq]) + ([] if keep_archive else [z]):
         os.remove(p)
     return counts, (size / 1e6 / tz, size / 1e6 / tu), fq if keep else None
 
 
-def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
-    """Phase 6. Returns the launch counts of the paired run."""
+CFG4_REF, CFG4_R1 = "chr20like.ref.gxz", "cfg4_R1.fastq"   # under tmp
+
+
+def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64, keep_r1=False):
+    """Phase 6. Returns the launch counts of the paired run; with `keep_r1`
+    the R1 FASTQ stays (phase 11 reuses it, and the reference, which always
+    stays)."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
     from genozip_tpu_torch.zip_pipeline import profiler
@@ -647,7 +675,7 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
     fa = os.path.join(tmp, "chr20like.fa")
     synth.write_fasta(fa, g)
     log(f"cfg4: {genome_bp} bp genome generated in {time.time() - t:.1f} s")
-    ref = os.path.join(tmp, "chr20like.ref.gxz")
+    ref = os.path.join(tmp, CFG4_REF)
     t = time.time()
     run_cli(["zip", "--make-reference", fa, "-o", ref, "--device", "cuda"],
             True)
@@ -655,7 +683,7 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
     log(f"cfg4: make-reference {tref:.1f} s -> {os.path.getsize(ref)} bytes")
     # the FASTA stays for phase 9, which zips it as a file (cfg2)
 
-    r1, r2 = os.path.join(tmp, "cfg4_R1.fastq"), os.path.join(tmp, "cfg4_R2.fastq")
+    r1, r2 = os.path.join(tmp, CFG4_R1), os.path.join(tmp, "cfg4_R2.fastq")
     t = time.time()
     size = synth.write_paired_fastq(r1, r2, g, pair_mib * MIB, seed=4)
     log(f"cfg4: generated 2 x {pair_mib} MiB ({size} bytes) in "
@@ -706,7 +734,7 @@ def phase_cfg4(tmp, smi, genome_bp=CHR20_BP, pair_mib=64):
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise SystemExit(f"cfg4: kernels never launched: {missing}")
-    for p in (r1, r2, z, out + ".1", out + ".2"):
+    for p in ([] if keep_r1 else [r1]) + [r2, z, out + ".1", out + ".2"]:
         os.remove(p)
 
     # 2 x 16 MiB: device equals host, and --REFERENCE without --reference
@@ -1319,9 +1347,7 @@ def check_aes(rng):
             pms = cuda_ms(lambda: aes_torch.aes256_ctr_plain(rk, hi, lo, buf),
                           5)
             nbytes = 2 * n
-            bms, by = max((nbytes / HBM_BPS * 1e3, "bytes"),
-                          ((n + 15) // 16 * AES_OPS_PER_BLOCK / ALU_OPS * 1e3,
-                           "operations"))
+            bms, by = bound_ms(nbytes, (n + 15) // 16 * AES_OPS_PER_BLOCK)
             meas[n] = (0, ms, pms, nbytes, bms, by)
             log(f"kernel aes256_ctr: {ms:.4f} ms at {n} bytes "
                 f"({n / 1e6 / ms:.2f} GB/s), plain {pms:.3f} ms, bound "
@@ -1696,6 +1722,297 @@ def small_tools(tmp, fq16, sam16, small_mib):
         os.remove(p)
 
 
+# --- phase 11: parallel ------------------------------------------------------
+
+CARD = "cuda:0"       # the card of phase 11's device lists
+SEED_CAND_OPS = 34   # a candidate's k-mer, hash, lookup and checks
+MESH_VB_READS = 16 * MIB // 342   # one 16 MiB VB of 150 bp reads
+
+
+def seed_align_traffic(codes, lens, rh, G, hash_bits):
+    """(bytes, operations) that the seed aligner needs on these reads: of
+    each read's codes the 32-byte sectors it reads (its bases, at least
+    the first k-mer's 16), lens and the outputs once; for each of a read's
+    8 candidates one 32-byte refhash sector and SEED_CAND_OPS operations;
+    the genome window of each distinct (read, start) among the usable
+    candidates once, in 32-byte sectors (a repeated start is read again
+    from L2, not from memory); two operations a base of every usable
+    candidate's compare."""
+    from genozip_tpu_torch.ops import align_torch
+    starts, oks, _ = align_torch.candidates(codes, lens, rh, G, hash_bits)
+    R, Lb = codes.shape
+    span = lens.long().clamp(max=Lb)[:, None]
+    extent = span.clamp(min=min(16, Lb))
+    code_bytes = 32 * int(((extent + 31) // 32).sum())
+    s = torch.where(oks, starts, -1).sort(1).values
+    first = torch.ones_like(oks)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    sectors = torch.where(first & (s >= 0),
+                          (s + span - 1) // 32 - s // 32 + 1, 0)
+    nbytes = code_bytes + 4 * R + 14 * R + 8 * 32 * R + 32 * int(sectors.sum())
+    ops = 8 * R * SEED_CAND_OPS + 2 * int(torch.where(oks, span, 0).sum())
+    return nbytes, ops
+
+
+def seed_align_batches(ref, fq, rng):
+    """The edge reads (lengths 1, 15, 16, 17, Lb - 1, Lb and 100, both
+    strands, substitutions and codes above 3) and one cfg4 VB of reads
+    (the first MESH_VB_READS reads of `fq`, 150 bp, Lb = 256), as padded
+    (codes, lens) numpy arrays."""
+    from genozip_tpu_torch.ops import pack
+    G, Lb = ref.length, 256
+    rows, lens = [], []
+    for L in (1, 15, 16, 17, Lb - 1, Lb) + (100,) * 26:
+        p = int(rng.integers(0, G - L))
+        c = np.array(ref.codes[p:p + L], np.uint8)
+        if rng.random() < 0.5:
+            c = (c ^ 3)[::-1]
+        if L > 20:
+            c[rng.integers(0, L, 3)] = rng.integers(0, 8, 3)
+        row = np.zeros(Lb, np.uint8)
+        row[:L] = c
+        rows.append(row)
+        lens.append(L)
+    edge = (np.stack(rows), np.asarray(lens, np.int32))
+    lines = head_records(fq, MESH_VB_READS).split(b"\n")[1::4]
+    seq = np.frombuffer(b"".join(lines), np.uint8).reshape(len(lines), -1)
+    codes = np.zeros((seq.shape[0], Lb), np.uint8)
+    codes[:, :seq.shape[1]] = pack.BASE2BIT[seq]
+    return edge, (codes, np.full(seq.shape[0], seq.shape[1], np.int32))
+
+
+def check_seed_align(ref, fq):
+    """The seed_align kernel against its plain version on the card, output
+    for output, at the edge reads and at one cfg4 VB; then both timed (CUDA
+    events, the kernel mean of 5 after a warm-up) at the VB. Returns
+    (max_abs_err, ms, plain ms, bytes, bound ms, bound by)."""
+    from genozip_tpu_torch.ops import align_cuda, align_torch
+    hb = ref.hash_bits
+    genome = torch.from_numpy(np.array(ref.codes, np.uint8)).cuda()
+    rh = torch.from_numpy(np.array(ref.refhash[:1 << hb], np.uint32)
+                          .view(np.int32)).cuda()
+    edge, vb = seed_align_batches(ref, fq, np.random.default_rng(18))
+    for label, (codes, lens) in (("edge", edge), ("vb", vb)):
+        c, ln = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+        k = align_cuda.seed_align(c, ln, genome, rh, hb)
+        p = align_torch.seed_align_plain(c, ln, genome, rh, hb)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        if err or not all(torch.equal(a, b) for a, b in zip(k, p)):
+            raise SystemExit(f"seed_align {label}: kernel differs from plain "
+                             f"(max_abs_err {err})")
+        log(f"kernel seed_align {label}: R={codes.shape[0]} Lb="
+            f"{codes.shape[1]} equal to plain, max_abs_err {err}, aligned "
+            f"{k[3].float().mean().item():.4f}")
+    ms = cuda_ms(lambda: align_cuda.seed_align(c, ln, genome, rh, hb), 5)
+    pms = cuda_ms(lambda: align_torch.seed_align_plain(c, ln, genome, rh, hb),
+                  1)
+    nbytes, ops = seed_align_traffic(c, ln, rh, ref.length, hb)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"kernel seed_align: {ms:.4f} ms at one cfg4 VB ({codes.shape[0]} "
+        f"reads, Lb={codes.shape[1]}), plain {pms:.3f} ms, bound {bms:.6f} "
+        f"ms ({by}: {nbytes} bytes, {ops} operations), share "
+        f"{100 * bms / ms:.2f}%, on {torch.cuda.get_device_name(0)}")
+    return err, ms, pms, nbytes, bms, by
+
+
+def aligned_share(z, ref):
+    """Share of reads the archive's FASTQ VBs hold as aligned (SQBITMAP)."""
+    from genozip_tpu_torch import piz_pipeline
+    pr = piz_pipeline.PizReader(z, ref)
+    try:
+        bms = [pr.load_vb(i, 0)[1]["SQBITMAP"]["local"][0]
+               for i in range(1, pr.num_vbs() + 1)]
+    finally:
+        pr.close()
+    return float(np.concatenate(bms).astype(bool).mean())
+
+
+def check_sharded_codecs(rng):
+    """ShardedZipEncoder and ShardedPizDecoder on ["cuda:0"] * 4 against
+    the same classes on four CPU devices (the kernels' plain versions),
+    byte for byte, and the payloads back."""
+    from genozip_tpu_torch.parallel import piz_sharded, zip_sharded
+    seqs, quals = main_path_streams(
+        rng, [int(rng.integers(256 << 10, MIB)) for _ in range(R)])
+    items = [(d, 0) for d in seqs] + [(d, 1) for d in quals] + \
+        [(d, i % 2) for i, d in enumerate(edge_streams(rng))]
+    datas = [d for d, _ in items]
+    blobs = {dev: zip_sharded.ShardedZipEncoder(
+        devices=[dev] * 4).encode_sections(items) for dev in (CARD, "cpu")}
+    if blobs[CARD] != blobs["cpu"]:
+        raise SystemExit("ShardedZipEncoder: cuda differs from plain")
+    for dev in (CARD, "cpu"):
+        dec = piz_sharded.ShardedPizDecoder(devices=[dev] * 4, min_size=1024)
+        if dec.decode_sections(blobs[CARD]) != datas:
+            raise SystemExit(f"ShardedPizDecoder on {dev}: payloads differ")
+    log(f"parallel: ShardedZipEncoder/ShardedPizDecoder on 4 x cuda:0 equal "
+        f"to 4 x cpu and the payloads, {len(items)} streams of "
+        f"{sum(map(len, datas))} bytes")
+
+
+def check_flagship():
+    """The flagship step on the card (2 shards on cuda:0) equals its run on
+    two CPU devices; then scaling_bench.py's line for one card."""
+    from genozip_tpu_torch.parallel import flagship
+    seq, qual, _, _ = flagship.example_batch(reads=4096, read_len=128)
+    outs = {dev: flagship.make_sharded_step(flagship.Mesh([dev] * 2))(
+        seq, qual) for dev in (CARD, "cpu")}
+    a, b = outs[CARD], outs["cpu"]
+    same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and \
+        all(torch.equal(x.cpu(), y) for x, y in zip(a[2], b[2])) and \
+        a[3] == b[3]
+    if not same:
+        raise SystemExit("flagship: the step on the card differs from the CPU")
+    mbps = flagship.bench_encode([torch.device(CARD)], 4096, 128, 3)
+    log(f"parallel: flagship step on the card equal to the CPU's (2 shards, "
+        f"{sum(b[3])} bytes); scaling_bench line "
+        + json.dumps({"devices": 1, "encode_MBps": round(mbps, 1),
+                      "weak_scaling_eff": 1.0}))
+
+
+def phase_parallel(tmp, smi, fq=None, mesh_mib=64, hosts_mib=32,
+                   small_mib=16, full_mib=128, genome_bp=CHR20_BP):
+    """Phase 11 on phase 6's genome, reference and R1 and phase 4's FASTQ
+    and archive (made here at these sizes when those phases did not run).
+    Returns (seed_align's measurements, its launches over the mesh run, the
+    rANS launches over the phase)."""
+    from genozip_tpu_torch import codecs, synth
+    from genozip_tpu_torch.ops import align_cuda, rans_cuda
+    from genozip_tpu_torch.parallel import piz_sharded
+    from genozip_tpu_torch.ref import refstore
+    from genozip_tpu_torch.zip_pipeline import profiler
+    ref, r1 = os.path.join(tmp, CFG4_REF), os.path.join(tmp, CFG4_R1)
+    if not os.path.exists(r1):
+        g = synth.genome(np.random.default_rng(20), genome_bp)
+        synth.write_fasta(os.path.join(tmp, "p11.fa"), g)
+        run_cli(["zip", "--make-reference", os.path.join(tmp, "p11.fa"),
+                 "-o", ref, "--device", "cuda"], True)
+        synth.write_paired_fastq(r1, r1 + ".r2", g, mesh_mib * MIB, seed=4)
+        os.remove(r1 + ".r2")
+    if fq is None:
+        fq = os.path.join(tmp, "reads.fastq")
+        synth.write_fastq(fq, full_mib * MIB, seed=512)
+        run_cli(["zip", fq, "-o", fq + ".gxz", "--device", "cuda", "-q"])
+    torch.cuda.synchronize()
+    rans_cuda.reset_launches()
+    seed = check_seed_align(refstore.load_ref_file(ref), r1)
+
+    # the mesh aligner against the host aligner on one file, in turns
+    size, res = os.path.getsize(r1), {}
+    for label, extra in (("host", []), ("mesh", ["--mesh", "1"])):
+        z, out = r1 + f".{label}.gxz", r1 + ".out"
+        torch.cuda.synchronize()
+        profiler.reset()
+        align_cuda.reset_launches()
+        t = time.time()
+        run_cli(["zip", r1, "--reference", ref, "--vblock", "16", "-o", z,
+                 "--device", "cuda", "-q"] + extra)
+        tz = time.time() - t
+        torch.cuda.synchronize()
+        seed_launches = align_cuda.launches["seed_align"]
+        align_s = profiler._totals.get("zip:align", 0.0)
+        t = time.time()
+        run_cli(["unzip", z, "-o", out, "--reference", ref, "--device",
+                 "cuda"])
+        tu = time.time() - t
+        if not same_file(r1, out):
+            raise SystemExit(f"parallel: {label} unzip differs from the input")
+        share = aligned_share(z, ref)
+        res[label] = (seed_launches, share)
+        log(f"parallel: zip --reference{' --mesh 1' if extra else ''} "
+            f"--vblock 16 of {size} bytes: zip {size / 1e6 / tz:.2f} MB/s "
+            f"({tz:.1f} s, zip:align {align_s:.2f} s), unzip "
+            f"{size / 1e6 / tu:.2f} MB/s ({tu:.1f} s), ratio "
+            f"{size / os.path.getsize(z):.3f}, aligned {share:.4f}, "
+            f"seed_align launches {seed_launches}, on {smi}")
+        for p in (z, out):
+            os.remove(p)
+    if res["mesh"][0] <= 0 or res["host"][0] != 0:
+        raise SystemExit(f"parallel: seed_align launches {res}")
+    # refhash layer 0 holds the smallest position of a slot's k-mers; at
+    # cfg4's 64 Mbp over 2^24 slots (four k-mers a slot) a seed's k-mer is
+    # there about a quarter of the time, so the mesh aligner places fewer
+    # reads than the host aligner, which also reads layer 1
+    if res["mesh"][1] <= 0.5:
+        raise SystemExit(f"parallel: the mesh aligner aligned "
+                         f"{res['mesh'][1]:.4f} of the reads")
+    s16 = os.path.join(tmp, "r1_16.fastq")
+    cut_records(r1, s16, small_mib * MIB, 4)
+    zs, ts = zip_cuda_cpu([s16], s16, ["--reference", ref, "--mesh", "1",
+                                       "--vblock", "16"], "parallel: mesh")
+    log(f"parallel: {small_mib} MiB --mesh archives equal from cuda "
+        f"({ts['cuda']:.1f} s) and cpu ({ts['cpu']:.1f} s)")
+    for p in (r1, s16, *zs.values()):
+        os.remove(p)
+
+    # --dp 2, the sharded coders, piz_file_dp and --hosts 2 on cfg3
+    size, z4 = os.path.getsize(fq), fq + ".gxz"
+    enc = []
+    with _count_items(enc):
+        t = time.time()
+        run_cli(["zip", fq, "--dp", "2", "-o", fq + ".dp.gxz", "--device",
+                 "cuda", "-q"])
+        tz = time.time() - t
+    if not same_file(fq + ".dp.gxz", z4):
+        raise SystemExit("parallel: the --dp 2 archive differs from phase 4's")
+    # --dp N takes min(N, cards present) devices, so on one card D = 1 and
+    # a batch is one VB; batches of D > 1 VBs run in the CPU tests, and D > 1
+    # devices on the card only in check_sharded_codecs (4 x cuda:0)
+    log(f"parallel: zip --dp 2 of {size} bytes {size / 1e6 / tz:.2f} MB/s "
+        f"({tz:.1f} s), the archive equal to phase 4's; sections through "
+        f"the sharded encoder: {sum(n for n, _ in enc)} in {len(enc)} calls, "
+        f"D = {sorted({d for _, d in enc})}")
+    check_sharded_codecs(np.random.default_rng(12))
+    codecs.enable_device_rans(CARD)
+    t = time.time()
+    piz_sharded.piz_file_dp(z4, fq + ".out", dp=4)
+    tp = time.time() - t
+    if not same_file(fq, fq + ".out"):
+        raise SystemExit("parallel: piz_file_dp output differs from the input")
+    log(f"parallel: piz_file_dp(dp=4) {size / 1e6 / tp:.2f} MB/s ({tp:.1f} "
+        f"s), byte exact")
+    f32 = os.path.join(tmp, "h32.fastq")
+    cut_records(fq, f32, hosts_mib * MIB, 4)
+    t = time.time()
+    run_cli(["zip", f32, "--hosts", "2", "-o", f32 + ".h.gxz", "--device",
+             "cuda", "-q"])
+    th = time.time() - t
+    run_cli(["zip", f32, "-o", f32 + ".gxz", "--device", "cuda", "-q"])
+    if not same_file(f32 + ".h.gxz", f32 + ".gxz"):
+        raise SystemExit("parallel: the --hosts 2 archive differs from "
+                         "zip_file's")
+    log(f"parallel: zip --hosts 2 of {os.path.getsize(f32)} bytes in "
+        f"{th:.1f} s (two worker processes on one card), equal to zip_file's")
+    check_flagship()
+    torch.cuda.synchronize()
+    counts = dict(rans_cuda.launches)
+    log(f"parallel: rANS launches over the phase {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"parallel: kernels never launched: {missing}")
+    for p in (fq + ".dp.gxz", fq + ".out", f32, f32 + ".h.gxz", f32 + ".gxz"):
+        os.remove(p)
+    os.remove(z4)
+    return seed, res["mesh"][0], counts
+
+
+@contextlib.contextmanager
+def _count_items(sink):
+    """Append (sections, D) of every ShardedZipEncoder call."""
+    from genozip_tpu_torch.parallel import zip_sharded
+    orig = zip_sharded.ShardedZipEncoder.encode_sections
+
+    def wrapped(self, items):
+        sink.append((len(items), self.D))
+        return orig(self, items)
+    zip_sharded.ShardedZipEncoder.encode_sections = wrapped
+    try:
+        yield
+    finally:
+        zip_sharded.ShardedZipEncoder.encode_sections = orig
+
+
 def slot_to_symbol(freq):
     """Slot->symbol bytes per (freq) row that sums to 4096, 0 elsewhere: the
     table the decoder took before the packed slot entries (its copy in
@@ -2013,8 +2330,8 @@ def ab_cfg3(parent, change, smi):
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
-PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "cfg5", "cfg5x",
-          "cfg1", "tools")
+PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "parallel", "cfg5",
+          "cfg5x", "cfg1", "tools")
 
 
 def main(argv=None):
@@ -2047,7 +2364,7 @@ def main(argv=None):
         phase_s[name] = time.time() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return res
-    from genozip_tpu_torch.ops import aes_cuda, rans_cuda
+    from genozip_tpu_torch.ops import aes_cuda, align_cuda, rans_cuda
 
     # 1. setup
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2066,10 +2383,12 @@ def main(argv=None):
             log("  ptxas:", line.strip())
     rans_cuda.lib()
     aes_cuda.lib()
+    align_cuda.lib()
 
     rng = np.random.default_rng(2024)
     meas, counts3, counts4, counts5, counts8 = {}, None, None, None, None
     counts1 = counts2 = rates3 = fq3 = None
+    par = "parallel" in phases
     with tempfile.TemporaryDirectory(prefix="gxz_smoke_") as tmp, \
             contextlib.ExitStack() as stack:
         inputs = InputWriter(tmp, phases)
@@ -2085,9 +2404,13 @@ def main(argv=None):
         log(f"inputs of phases 7-9 ready; waited {time.time() - t:.1f} s")
         if "cfg3" in phases:                            # 3 and 4
             counts3, rates3, fq3 = timed("cfg3", phase_cfg3, tmp, smi, 128,
-                                         32, "tools" in phases)
+                                         32, "tools" in phases or par, par)
         if "cfg4" in phases:
-            counts4 = timed("cfg4", phase_cfg4, tmp, smi)      # 6
+            counts4 = timed("cfg4", phase_cfg4, tmp, smi, CHR20_BP, 64,
+                            par)                                 # 6
+        if par:                                                  # 11
+            seed, seed_launches, counts11 = timed(
+                "parallel", phase_parallel, tmp, smi, fq3)
         if "cfg5" in phases:
             counts5, files5 = timed("cfg5", phase_cfg5, tmp, smi)  # 7
         if "cfg5x" in phases:
@@ -2109,7 +2432,7 @@ def main(argv=None):
     rows = []
     for line, name, entry, label in TPU_ROWS:
         err, ms, pms, nbytes, nsym = meas[(name, label)]
-        bms, by = bound_ms(nbytes, nsym)
+        bms, by = bound_ms(nbytes, nsym * OPS_PER_SYMBOL)
         rows.append({"name": name, "route": "cuda",
                      "source": "genozip_tpu_torch/csrc/rans.cu",
                      "replaces": f"{PALLAS}{line}", "launches": counts4[name],
@@ -2124,7 +2447,8 @@ def main(argv=None):
                      "launches_deep": counts8[name],
                      "launches_cfg1": counts1[name],
                      "launches_cfg2": counts2[name],
-                     "launches_tools": counts10[name]})
+                     "launches_tools": counts10[name],
+                     "launches_parallel": counts11[name]})
     err, ms, pms, nbytes, bms, by = aes[64 * MIB]
     rows.append({"name": "aes256_ctr", "route": "cuda",
                  "source": "genozip_tpu_torch/csrc/aes.cu",
@@ -2142,6 +2466,21 @@ def main(argv=None):
                  "plain_ms_1mib": round(aes[MIB][2], 4),
                  "bound_ms_1mib": round(aes[MIB][4], 6),
                  "launches_tools": counts10["aes256_ctr"]})
+    err, ms, pms, nbytes, bms, by = seed
+    rows.append({"name": "seed_align", "route": "cuda",
+                 "source": "genozip_tpu_torch/csrc/seed_align.cu",
+                 "replaces": "genozip_tpu/parallel/aligner_sharded.py:65",
+                 "launches": seed_launches, "max_abs_err": err,
+                 "ms": round(ms, 4), "plain_ms": round(pms, 4),
+                 "bound_ms": round(bms, 6), "bound_by": by,
+                 "library_ms": None, "port_kernel": "seed_align",
+                 "entry": "genozip_tpu_torch.ops.align_cuda.seed_align",
+                 "tpu_kernel": None,
+                 "note": "no Pallas kernel: genozip_tpu's mesh aligner step "
+                         "is the XLA device function make_sharded_aligner's "
+                         "local (X3)",
+                 "shape": f"one cfg4 VB, {MESH_VB_READS} reads, Lb 256",
+                 "bytes": nbytes, "launches_parallel": seed_launches})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,11 +12,21 @@ archive per input into a tar file, `--replace` removes the inputs once the
 archive verified, and `--biopsy N` writes VB N's text. Inputs may be URLs
 (curl or wget) or .cram, .bcf and .ora files (samtools, bcftools, orad).
 
+Across devices: `zip --dp N` encodes N VBs' rANS sections at a time over N
+devices (the same archive bytes), `zip --mesh N --reference R` places FASTQ
+reads with the seed aligner kernel on N devices (genozip_tpu's mesh
+aligner's placements, not the host aligner's), and `zip --hosts N` segs VB
+stripes in N worker processes over torch.distributed (the same archive
+bytes; plain inputs, not SAM/BAM: fault F5). `--hosts 1` is a plain zip.
+
 Counterpart of genozip_tpu/cli.py, with its option names. `--device` names
-where the rANS and AES kernels run: `cuda` (default; raises when no GPU is
-present) or `cpu` (the kernels' plain PyTorch versions). The archive bytes
-are the same either way. Options of the reference whose paths are not
-ported yet (--dp, --mesh, --hosts) are not offered. GXZ_REFERENCE names the
+where the kernels run: `cuda` (default; raises when no GPU is present) or
+`cpu` (the kernels' plain PyTorch versions). The archive bytes are the
+same either way. genozip_tpu drops some options without a word where
+another one takes over (faults F14, F17); the port refuses them, naming
+the fault: `--password`/`--md5` with `--pair`, `--deep` or `--hosts`
+(F14); `--dp`/`--mesh` with `--pair`, `--deep` or `--tar`, and `--hosts`
+with an option its workers would not see (F17). GXZ_REFERENCE names the
 reference when --reference is not given. `cat -o FILE` writes what `cat`
 prints to FILE.
 """
@@ -91,6 +101,19 @@ def build_parser():
                    help="write one archive per input into this tar file")
     z.add_argument("--biopsy", type=int, default=None,
                    help="write VB N's raw text to INPUT.vbN and stop")
+    z.add_argument("--mesh", type=int, default=None,
+                   help="align FASTQ reads with the seed aligner kernel on N "
+                        "devices (genome+refhash on each, reads split over "
+                        "them); needs --reference")
+    z.add_argument("--dp", type=int, default=None,
+                   help="VBs data-parallel over N devices: N VBs' section "
+                        "payloads encoded at a time, one launch per device; "
+                        "archive bytes identical to the single-device path")
+    z.add_argument("--hosts", type=int, default=None,
+                   help="multi-host ZIP: N torch.distributed processes seg "
+                        "VB stripes in parallel (dict-merge collective over "
+                        "the process group); archive bytes identical to "
+                        "single-process")
     _device_arg(z)
 
     u = sub.add_parser("unzip", help="decompress")
@@ -219,13 +242,17 @@ def _zip(args):
         # genozip_tpu's zip_pair drops --REFERENCE without a word and writes
         # an archive that still needs the .ref file
         raise ValueError("--REFERENCE is not supported with --pair")
-    together = "pair" if args.pair else "deep" if args.deep else None
+    hosts = args.hosts is not None and args.hosts > 1
+    together = "pair" if args.pair else "deep" if args.deep else \
+        "hosts" if hosts else None
     for opt in ("password", "md5"):
         if together and getattr(args, opt) and not args.tar:
-            # genozip_tpu's zip_pair and zip_deep take neither option and
-            # write a plain archive without a word (fault F14)
+            # genozip_tpu's zip_pair, zip_deep and zip_file_multihost take
+            # neither option and write a plain archive without a word
+            # (fault F14)
             raise ValueError(f"--{opt} is not supported with --{together} "
                              "(fault F14)")
+    _refuse_dropped(args, hosts)
     from .codecs import assign as _assign
     mode = _assign.get_mode()
     if args.fast:
@@ -236,6 +263,37 @@ def _zip(args):
         _zip_inputs(args)
     finally:
         _assign.set_mode(mode)
+
+
+# what `--hosts` workers would not see: genozip_tpu's zip_file_multihost
+# opens the input with no reference, datatype or options (F17)
+HOSTS_DROPS = (("reference", "--reference"), ("dt", "--input-type"),
+               ("threads", "--threads"), ("truncate", "--truncate"),
+               ("bamass", "--bamass"), ("optimize", "--optimize"),
+               ("store_ref", "--REFERENCE"), ("mesh", "--mesh"),
+               ("dp", "--dp"), ("fast", "--fast"), ("best", "--best"),
+               ("pair", "--pair"), ("deep", "--deep"), ("tar", "--tar"))
+
+
+def _refuse_dropped(args, hosts):
+    """Fault F17: genozip_tpu's zip runs --pair, --deep and --tar through
+    functions that take neither --dp nor --mesh, and --hosts through
+    workers that see only the input, the output and --vblock, and drops
+    the rest without a word. The port refuses those combinations."""
+    if args.mesh and not args.reference:
+        raise ValueError("--mesh needs --reference (fault F17: genozip_tpu "
+                         "ignores it without one)")
+    for opt in ("dp", "mesh"):
+        if getattr(args, opt):
+            for other in ("pair", "deep", "tar"):
+                if getattr(args, other):
+                    raise ValueError(f"--{opt} is not supported with "
+                                     f"--{other} (fault F17)")
+    if hosts:
+        for attr, name in HOSTS_DROPS:
+            if getattr(args, attr):
+                raise ValueError(f"{name} is not supported with --hosts "
+                                 "(fault F17)")
 
 
 def _zip_inputs(args):
@@ -264,13 +322,17 @@ def _zip_inputs(args):
         zip_pair(args.input, args.input2[0], out, vb_size=vb,
                  show_stats=args.stats, reference=args.reference,
                  threads=args.threads, optimize=args.optimize)
+    elif args.hosts is not None and args.hosts > 1:
+        from .parallel.multihost import zip_file_multihost
+        zip_file_multihost(args.input, out, n_procs=args.hosts, vb_size=vb,
+                           device=args.device, show_stats=args.stats)
     else:
         zip_file(args.input, out, vb_size=vb, show_stats=args.stats,
                  threads=args.threads, reference=args.reference,
                  store_ref=args.store_ref, optimize=args.optimize,
                  bamass=args.bamass, dt_name=args.dt,
                  password=args.password, use_md5=args.md5,
-                 truncate=args.truncate)
+                 truncate=args.truncate, dp=args.dp, mesh=args.mesh)
     if args.test or args.replace:
         from .piz_pipeline import piz_file
         piz_file(out, None, reference=args.reference, password=args.password)

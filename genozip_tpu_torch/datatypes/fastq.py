@@ -4,7 +4,9 @@ Counterpart of genozip_tpu/datatypes/fastq.py: the same seg and recon, so
 archives are byte-identical. SEQ is stored verbatim (NONREF) or, with a
 reference, as aligner placements plus mismatches (SQBITMAP, GPOS, STRAND,
 SEQNM, SEQMISP, SEQMISB, the spliced-alignment contexts and NONREF for
-unaligned reads); R2 of a pair gets R1's placements as a hint. With a
+unaligned reads); R2 of a pair gets R1's placements as a hint. With
+--mesh, the seed aligner kernel places the reads instead of the host
+aligner (parallel/mesh_aligner.py: refhash layer 0, unspliced). With a
 --bamass index, the BAM's placements stand in for the aligner's seed search
 for the reads they cover (src/fastq_bamass.c). In a --deep archive a read
 whose SEQ (and QUAL) equal its BAM alignment's stores only a hit flag
@@ -38,6 +40,7 @@ class FastqDT(DataType):
     pair_gpos_hint = None   # R2: R1's GPOS per read (-1 unaligned)
     deep_index = None       # deep.DeepIndex of a --deep archive's BAM
     bamass_index = None     # bamass.BamAssIndex of zip --bamass
+    mesh_aligner = None     # parallel.mesh_aligner.MeshAligner of zip --mesh
 
     def segconf_scan(self, sample):
         """FASTQ calibration: read-length profile, long-read detection
@@ -332,6 +335,13 @@ class FastqDT(DataType):
                 aligned[rest] = sub["aligned"]
                 gpos[rest] = sub["gpos"]
                 is_fwd[rest] = sub["is_fwd"]
+            gpos2, junction = gpos, lens.astype(np.int64)
+        elif self.mesh_aligner is not None:
+            # zip --mesh: the seed aligner kernel, layer 0 only, unspliced
+            # and without a pair hint (parallel/mesh_aligner.py)
+            with profiler.timer("zip:align"):
+                res = self.mesh_aligner.align_batch(ref, codes, lens)
+            aligned, gpos, is_fwd = res["aligned"], res["gpos"], res["is_fwd"]
             gpos2, junction = gpos, lens.astype(np.int64)
         else:
             pair_hint = self.pair_gpos_hint

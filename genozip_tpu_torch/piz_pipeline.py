@@ -235,12 +235,14 @@ class PizReader:
         be read (or drained) in order."""
         return next(self.vbs_in_order([vb_i], comp_i))
 
-    def vbs_in_order(self, vb_ids, comp_i: int = 0, workers: int = 1):
+    def vbs_in_order(self, vb_ids, comp_i: int = 0, workers: int = 1,
+                     window: int | None = None):
         """The VBs `vb_ids` of component `comp_i`, one at a time, in order.
-        Up to `workers` VBs load and reconstruct ahead on a thread pool; a
-        MAIN VB of a gencomp archive gets its deported lines back on the
-        consuming thread, when it is taken, so a caller may drain skipped
-        VBs (drain_vb_gencomp) between two takes."""
+        `workers` threads load and reconstruct up to `window` (default:
+        `workers`) VBs ahead; a MAIN VB of a gencomp archive gets its
+        deported lines back on the consuming thread, when it is taken, so a
+        caller may drain skipped VBs (drain_vb_gencomp) between two
+        takes."""
         gc = comp_i == 0 and self.ensure_gencomp()
 
         def work(vb_i):
@@ -258,11 +260,12 @@ class PizReader:
             for vb_i in vb_ids:
                 yield merged(work(vb_i))
             return
+        window = window or workers
         with ThreadPoolExecutor(max_workers=workers) as pool:
             inflight = deque()
             for vb_i in vb_ids:
                 inflight.append(pool.submit(work, vb_i))
-                if len(inflight) > workers:
+                if len(inflight) > window:
                     yield merged(inflight.popleft().result())
             while inflight:
                 yield merged(inflight.popleft().result())
@@ -457,11 +460,17 @@ def workers() -> int:
     return min(os.cpu_count() or 2, 8)
 
 
-def _piz(pr, comp_i, out_path):
+def _piz(pr, comp_i, out_path, n_workers=None, window=None, sink=None):
+    """Reconstruct component `comp_i` into `out_path`, or into `sink` (an
+    open file that the caller closes) when given, with `n_workers` threads
+    (default `workers()`) up to `window` VBs ahead; check its length and
+    digests. Returns its bytes reconstructed."""
     h = pr.file_hdr
     comp = pr.components()[comp_i]
     deep = pr.deep_index if comp_i == 0 else None
-    sink = _open_sink(pr, out_path)
+    own = sink is None
+    if own:
+        sink = _open_sink(pr, out_path)
     try:
         md5 = hashlib.md5() if comp_i == 0 and h.get("md5") else None
         adler = zlib.adler32(b"")
@@ -478,7 +487,7 @@ def _piz(pr, comp_i, out_path):
         # thread drains them in order (running digest and output write; a
         # deep archive's BAM records go into the index in VB order)
         for out in pr.vbs_in_order(range(1, pr.comp_num_vbs(comp_i) + 1),
-                                   comp_i, workers()):
+                                   comp_i, n_workers or workers(), window):
             if deep is not None:
                 with profiler.timer("piz:deep-index"):
                     deep.add_bam_records(out)
@@ -490,7 +499,7 @@ def _piz(pr, comp_i, out_path):
                 if sink:
                     sink.write(out)
     finally:
-        if sink:
+        if own and sink:
             sink.close()
     if total != comp["txt_len"]:
         raise ValueError(f"component {comp_i}: length mismatch")

@@ -11,7 +11,9 @@ SAM's SEQ and a VCF's REF are predicted from it; with
 --REFERENCE the genome ranges the file used are stored in the archive. A VB's
 whole-section RANS0 and RANS1 payloads of the device size go to the card in
 one launch per order. The archive bytes equal genozip_tpu's with its device
-path off.
+path off. With --dp N, N built VBs at a time have those payloads encoded
+over N devices (parallel/zip_sharded.py), the same bytes; with --mesh N,
+the seed aligner kernel places FASTQ reads (parallel/mesh_aligner.py).
 
 SAM/BAM without a reference build their genome from the alignments
 (REF_INTERNAL, src/reference.c): VBs seg in order on one worker, since each
@@ -36,6 +38,7 @@ R1's ("pair-assisted").
 Reference parity: src/zip.c:721 zip_one_file / :510 zip_compress_one_vb.
 """
 
+import contextlib
 import copy
 import hashlib
 import os
@@ -54,6 +57,8 @@ from .datatypes import detect, get
 from .deep import DeepIndex
 from .format import sections as fmt
 from .ops import pack as packops
+from .parallel.mesh_aligner import MeshAligner
+from .parallel.zip_sharded import ShardedZipEncoder
 from .ref.refstore import load_ref_file
 from .regions import ra_entries
 from .txtfile import TxtReader, DEFAULT_VB_SIZE
@@ -80,14 +85,30 @@ class ZipStats:
 
 
 class ZipJob:
-    """Shared state for writing one archive (one or two components)."""
+    """Shared state for writing one archive (one or two components).
 
-    def __init__(self, out_path: str):
+    Built VBs are flushed in batches (`flush_batch`): their whole-section
+    RANS0/RANS1 payloads go through one ShardedZipEncoder. Under `dp`
+    (zip --dp) a batch is D VBs and the encoder spans D devices; otherwise
+    a batch is one VB and the encoder is the kernels' device
+    (`codecs.enable_device_rans`) with its size threshold, or none at all
+    (host coders)."""
+
+    def __init__(self, out_path: str, dp: int | None = None):
         self.out = open(out_path, "wb")
         self.zw = fmt.ZWriter(self.out)
         self.gctxs: dict[str, ZCtxGlobal] = {}
         self.stats = ZipStats()
         self.ra_index = {}
+        self.dp = dp
+        if dp:
+            self.encoder = ShardedZipEncoder(n_devices=dp)
+        elif codecs.device() is not None:
+            self.encoder = ShardedZipEncoder(
+                devices=[codecs.device()], min_size=codecs.device_batch_min())
+        else:
+            self.encoder = None
+        self.batch_vbs = self.encoder.D if dp else 1
 
     def precommit_codecs(self, res):
         """Segconf codec pre-commitment (reference segconf.c:459 +
@@ -145,7 +166,7 @@ class ZipJob:
         {(name, sec_type): payload} map."""
         built = self.build_vb(res, data, vb_i, comp_i, pre_locals,
                               pair_payloads, collect)
-        self.flush_vb(built)
+        self.flush_batch([built])
         return built["out_payloads"]
 
     def build_vb(self, res, data, vb_i, comp_i=0, pre_locals=None,
@@ -225,23 +246,35 @@ class ZipJob:
                 "comp_i": comp_i, "data_len": int(data.shape[0]),
                 "num_lines": res.num_lines, "out_payloads": out_payloads}
 
-    def flush_vb(self, built):
-        """Compress and write the VB's sections + header. The VB's
-        whole-section RANS0/RANS1 payloads of the device size are encoded in
-        one launch per order."""
+    def flush_batch(self, batch):
+        """Compress and write built VBs, in order. Their whole-section
+        RANS0/RANS1 payloads that the encoder takes and no worker
+        compressed already are encoded in one `encode_sections`: one
+        launch for each (device, order)."""
+        pre = [{} for _ in batch]
+        enc = self.encoder
+        items, keys = [], []
+        for bi, b in enumerate(batch if enc is not None else ()):
+            for i, e in enumerate(b["pending"]):
+                if e[3] in (codecs.RANS0, codecs.RANS1) and e[7] is None \
+                        and enc.eligible(len(e[2])):
+                    items.append((e[2], 0 if e[3] == codecs.RANS0 else 1))
+                    keys.append((bi, i))
+        if items:
+            with profiler.timer("zip:dp-encode") if self.dp else \
+                    contextlib.nullcontext():
+                blobs = enc.encode_sections(items)
+            for (bi, i), blob in zip(keys, blobs):
+                pre[bi][i] = blob
+        for b, p in zip(batch, pre):
+            self.flush_vb(b, p)
+
+    def flush_vb(self, built, precomp):
+        """Write the VB's sections + header; `precomp` maps section indices
+        to streams encoded already."""
         zw, stats = self.zw, self.stats
         pending = built["pending"]
         vb_i, comp_i = built["vb_i"], built["comp_i"]
-        precomp = {}
-        bmin = codecs.device_batch_min()
-        if bmin:
-            for order, cid in ((0, codecs.RANS0), (1, codecs.RANS1)):
-                idx = [i for i, e in enumerate(pending)
-                       if e[3] == cid and len(e[2]) >= bmin and e[7] is None]
-                if idx:
-                    blobs = codecs.compress_many_rans(
-                        [pending[i][2] for i in idx], order)
-                    precomp.update(zip(idx, blobs))
         for i, (sec, name, payload, codec, ltype, flags, units, blob) in \
                 enumerate(pending):
             pc = precomp.get(i, blob)
@@ -313,7 +346,8 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
              reference: str | None = None, store_ref: bool = False,
              optimize: bool = False, bamass: str | None = None,
              dt_name: str | None = None, password: str | None = None,
-             use_md5: bool = False, truncate: bool = False):
+             use_md5: bool = False, truncate: bool = False,
+             dp: int | None = None, mesh: int | None = None):
     """Compress one file of any datatype, detected from its name and first
     bytes unless `dt_name` (--input-type) names it, against `reference` (a
     .ref.gxz) if given; `store_ref` also stores the genome ranges used
@@ -322,7 +356,14 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
     (AES-256-CTR); `use_md5` adds the input's MD5 to the file header;
     `truncate` accepts an input cut mid-record. The device of the rANS and
     AES kernels is whatever `codecs.enable_device_rans` set (host coders
-    and the CPU if nothing)."""
+    and the CPU if nothing).
+
+    `dp` (--dp N): D built VBs at a time have their RANS0/RANS1 sections
+    encoded over D devices (parallel/zip_sharded.py); the archive is the
+    same bytes. `mesh` (--mesh N, with a reference): FASTQ reads are placed
+    by the seed aligner kernel on N devices (parallel/mesh_aligner.py),
+    whose placements are genozip_tpu's mesh aligner's, not the host
+    aligner's. Their devices are `parallel.devices_for`'s."""
     if bamass and not reference:
         raise ValueError("--bamass needs --reference")
     reader, dt, dt_name = _open_component(in_path, reference, dt_name,
@@ -331,12 +372,15 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
         dt.optimize_enabled = optimize
         if store_ref and getattr(dt, "ref", None) is not None:
             dt.ref.start_tracking()
+        if mesh and reference:
+            with profiler.timer("zip:mesh-setup"):
+                dt.mesh_aligner = MeshAligner(dt.ref, n_devices=mesh)
         if bamass:
             with profiler.timer("zip:bamass-index"):
                 dt.bamass_index = build_bamass_index(bamass, dt.ref)
         if vb_size is None:
             vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
-        job = ZipJob(out_path)
+        job = ZipJob(out_path, dp)
         try:
             enc = _setup_encryption(job, password)
             _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
@@ -362,26 +406,15 @@ def _setup_encryption(job, password):
     return {"salt": salt.hex(), "tag": crypt.key_tag(key)}
 
 
-def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
-              reference, store_ref, enc, md5, truncate):
-    txt_header = dt.read_txt_header(reader)
-    file_adler = zlib.adler32(b"")
-    if txt_header:
-        file_adler = zlib.adler32(txt_header, file_adler)
-        if md5:
-            md5.update(txt_header)
-        codec = codec_assign.assign_best(txt_header, "text")
-        job.zw.write_section(fmt.SEC_TXT_HEADER, txt_header, codec=codec, comp_i=0)
-        job.stats.txt_len += len(txt_header)
-    iref = getattr(dt, "ref", None)
-    if not getattr(iref, "internal", False):
-        iref = None
-
-    # segconf calibration seg (reference segconf.c:459): seg a ~1MB sample
-    # to commit the per-file lazy seg choices (QUAL demux class, aux
-    # layouts) and pre-commit every sampled context's codec. Under
-    # REF_INTERNAL the denovo genome must not be populated out of VB order,
-    # so calibration runs with it detached (SEQ goes verbatim).
+def calibrate(job, reader, dt, iref=None) -> bytes:
+    """Segconf calibration seg (reference segconf.c:459): seg a ~1MB sample
+    to commit the per-file lazy seg choices (QUAL demux class, aux layouts)
+    and pre-commit every sampled context's codec, then freeze the choices:
+    from here on seg may run concurrently, and bytes match across thread
+    counts. Under REF_INTERNAL (`iref`) the denovo genome must not be
+    populated out of VB order, so calibration runs with it detached (SEQ
+    goes verbatim). Returns the sample peeked, which is part of the VB
+    boundary layout (`TxtReader.vblocks` takes the buffered prefix first)."""
     cal = reader.peek(1 << 20)
     if cal:
         cdata = np.frombuffer(cal, np.uint8)
@@ -400,10 +433,25 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
             finally:
                 if iref is not None:
                     dt.ref = iref
-
-    # from here on seg runs concurrently: per-file trial-once choices are
-    # final, so bytes match across thread counts
     dt.freeze_lazy_choices()
+    return cal
+
+
+def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
+              reference, store_ref, enc, md5, truncate):
+    txt_header = dt.read_txt_header(reader)
+    file_adler = zlib.adler32(b"")
+    if txt_header:
+        file_adler = zlib.adler32(txt_header, file_adler)
+        if md5:
+            md5.update(txt_header)
+        codec = codec_assign.assign_best(txt_header, "text")
+        job.zw.write_section(fmt.SEC_TXT_HEADER, txt_header, codec=codec, comp_i=0)
+        job.stats.txt_len += len(txt_header)
+    iref = getattr(dt, "ref", None)
+    if not getattr(iref, "internal", False):
+        iref = None
+    calibrate(job, reader, dt, iref)
     prog = Progress(f"zip {in_path.rsplit('/', 1)[-1]}", None)
 
     # up to `workers` VBs seg concurrently while the main thread merges,
@@ -413,6 +461,8 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
     workers = 1 if iref is not None else (threads or os.cpu_count() or 2)
     gencomp = _Gencomp(dt, dt_name, in_path, vb_size, truncate)
     vb_i = 0
+    batch = []      # built VBs waiting for their batch's encode
+
     with ThreadPoolExecutor(max_workers=workers) as pool:
         def seg_one(data):
             with profiler.timer("zip:seg"):
@@ -431,7 +481,11 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
                 pres, pre_locals = pfut.result()
             gencomp.add_positions(pres, gcpos)
             with profiler.timer("zip:merge+write"):
-                job.write_vb(pres, pdata, vb_i, pre_locals=pre_locals)
+                batch.append(job.build_vb(pres, pdata, vb_i,
+                                          pre_locals=pre_locals))
+                if len(batch) >= job.batch_vbs:
+                    job.flush_batch(batch)
+                    batch.clear()
             prog.update(int(pdata.shape[0]))
 
         for data in reader.vblocks(dt, vb_size):
@@ -448,6 +502,9 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
                 drain()
         while inflight:
             drain()
+        if batch:
+            with profiler.timer("zip:merge+write"):
+                job.flush_batch(batch)
     prog.finish()
     with profiler.timer("zip:gencomp-write"):
         gencomp_hdr = gencomp.write_components(job, vb_size)

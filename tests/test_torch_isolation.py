@@ -6,10 +6,13 @@ interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module, no `jax`
 and no `cryptography` in sys.modules. The SAM/BAM modules (sag, translate,
 datatypes/sam, sam_tags, bam), those of deep, bamass, coverage and
 regions, the VCF, PBWT and text datatype modules, and crypt, the AES
-binding, the BWT codec, biopsy and stream are among the files walked, and
-SAM/BAM, --deep, --bamass, VCF, `cat --vcf`, translation, --password and
---best commands among the runs; on a card, SAM and BAM archives from
-`--device cuda` equal the cpu ones."""
+binding, the BWT codec, biopsy and stream, the multi-device modules
+(parallel/) and the seed aligner's binding are among the files walked, and
+SAM/BAM, --deep, --bamass, VCF, `cat --vcf`, translation, --password,
+--best, --dp, --mesh and --hosts commands among the runs (a --hosts run
+starts its worker processes through a wrapper that reports what each
+loaded); on a card, SAM and BAM archives from `--device cuda` equal the cpu
+ones."""
 
 import ast
 import json
@@ -62,7 +65,11 @@ def test_sources_found():
               "ops/pbwt.py", "datatypes/tabular.py", "datatypes/gff.py",
               "datatypes/fasta.py", "datatypes/generic.py", "crypt.py",
               "ops/aes_cuda.py", "ops/aes_torch.py", "codecs/bwt.py",
-              "biopsy.py", "stream.py"):
+              "biopsy.py", "stream.py", "parallel/__init__.py",
+              "parallel/zip_sharded.py", "parallel/piz_sharded.py",
+              "parallel/aligner_sharded.py", "parallel/mesh_aligner.py",
+              "parallel/multihost.py", "parallel/flagship.py",
+              "ops/align_cuda.py", "ops/align_torch.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
@@ -155,11 +162,39 @@ RUNS = {
                      "--device", "cpu"],
     "zip_best": ["zip", "{d}/v.vcf", "-o", "{t}/b.gxz", "--best", "--device",
                  "cpu", "-q"],
+    "zip_dp": ["zip", "{d}/r.fastq", "-o", "{t}/dp.gxz", "--dp", "2",
+               "--device", "cpu", "-q"],
+    "zip_mesh_reference": ["zip", "{d}/r1.fastq", "--reference",
+                           "{d}/g.ref.gxz", "--mesh", "1", "-o",
+                           "{t}/mesh.gxz", "--device", "cpu", "-q"],
+    "zip_hosts": ["zip", "{d}/r.fastq", "-o", "{t}/h.gxz", "--hosts", "2",
+                  "--device", "cpu", "-q"],
 }
+# a --hosts run starts its workers through this wrapper, which reports what
+# each worker process loaded
+WORKER = """
+import json, runpy, sys
+sys.argv = ["multihost"] + sys.argv[1:]
+try:
+    runpy.run_module("genozip_tpu_torch.parallel.multihost",
+                     run_name="__main__", alter_sys=True)
+finally:
+    print("WORKER", json.dumps(sorted(
+        k for k in sys.modules if k.split(".")[0] in
+        ("jax", "genozip_tpu", "cryptography"))), flush=True)
+"""
 SCRIPT = """
 import json, sys
 from genozip_tpu_torch.cli import main
-rc = main(json.loads(sys.argv[1]))
+argv = json.loads(sys.argv[1])
+if "--hosts" in argv:
+    from genozip_tpu_torch.parallel import multihost
+    Popen = multihost.subprocess.Popen
+    def wrapped(cmd, **kw):
+        assert cmd[1:3] == ["-m", "genozip_tpu_torch.parallel.multihost"]
+        return Popen([cmd[0], "-c", sys.argv[2]] + cmd[3:], **kw)
+    multihost.subprocess.Popen = wrapped
+rc = main(argv)
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                 ("jax", "genozip_tpu", "cryptography"))
 print("RESULT", json.dumps({"rc": rc, "loaded": loaded}))
@@ -171,13 +206,20 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
     argv = [a.format(d=inputs, t=tmp_path) for a in RUNS[case]]
     env = {k: v for k, v in os.environ.items() if k != "GXZ_DEVICE_RANS"}
     env.update(PYTHONPATH=ROOT, GXZ_NO_REF_CACHE="1")
-    res = subprocess.run([sys.executable, "-c", SCRIPT, json.dumps(argv)],
+    res = subprocess.run([sys.executable, "-c", SCRIPT, json.dumps(argv),
+                          WORKER],
                          capture_output=True, text=True, env=env,
                          cwd=str(tmp_path), timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")]
     got = json.loads(line[-1][len("RESULT "):])
     assert got == {"rc": 0, "loaded": []}
+    workers = [x for x in res.stdout.splitlines() if x.startswith("WORKER ")]
+    assert workers == (["WORKER []"] * 2 if case == "zip_hosts" else [])
+    if case in ("zip_dp", "zip_hosts"):
+        out = "dp.gxz" if case == "zip_dp" else "h.gxz"
+        with open(tmp_path / out, "rb") as a, open(inputs / "r.gxz", "rb") as b:
+            assert a.read() == b.read()
     if case in ("unzip", "unzip_password"):
         with open(tmp_path / "r.out", "rb") as a, \
                 open(inputs / "r.fastq", "rb") as b:
