@@ -98,7 +98,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
    reference, equal to `translate.me23_vb_to_vcf` of the generator's text.
 10. tools: the aes256_ctr kernel against its plain version on the card,
    byte for byte, at n in {0, 1, 15, 16, 17, 4095, 4097, 1 MiB, 64 MiB} and
-   counters whose low bytes carry, timed at 1 and 64 MiB; phase 4's 128
+   counters whose low bytes carry, timed at 1 and 64 MiB through its
+   wrapper and alone (a CUDA graph of its C entry point); phase 4's 128
    MiB FASTQ through `zip --password --md5 --test`, `unzip --password`
    (byte for byte) and `cat --password --head 1000`, with MB/s beside phase
    4's unencrypted ones and every kernel's launches (each must be > 0, the
@@ -116,8 +117,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
 11. parallel, on phase 6's reference and R1 and phase 4's FASTQ and
    archive: the seed_align kernel against its plain version on the card,
    output for output, at edge reads (lengths 1, 15, 16, 17, Lb - 1 and Lb,
-   both strands, codes above 3) and at one cfg4 VB (49k reads of 150 bp,
-   Lb = 256), timed against its bound; `zip --reference --vblock 16` of the
+   both strands, codes above 3; the genome's last bases and position 0;
+   a tie that the first candidate must win; tests/torch_seed_reads.py)
+   spread over 8192 rows, at Lb = 256, at Lb = 130 and with the codes one
+   byte past an aligned address, and at one cfg4 VB (49k reads of 150 bp,
+   Lb = 256), timed through its wrapper and alone against its bound;
+   `zip --reference --vblock 16` of the
    64 MiB R1 with the host aligner, then with `--mesh 1`, each unzipped byte
    for byte, with MB/s, ratio, `zip:align` seconds, the aligned share
    (SQBITMAP; the mesh run's must be > 0.5) and seed_align's launches (> 0
@@ -141,7 +146,9 @@ with the numbers of all sixteen TPU kernels' counterparts, of the AES
 kernel and of the seed aligner kernel (time, plain time, the bound: bytes
 at 3.35 TB/s or 32-bit integer operations at 16.7 T/s, whichever is
 larger; launches on the cfg4, cfg3, cfg5, deep, cfg1, cfg2, phase 10 and
-phase 11 paths; seed_align's on phase 11's --mesh run) and
+phase 11 paths; seed_align's on phase 11's --mesh run; `ms` through the
+wrapper for every kernel, and for the AES and seed aligner kernels also
+`ms_alone`, the kernel alone) and
 {"ok": true,
 "device": {...}}. Needs no network; writes under a temporary directory
 that it removes.
@@ -224,6 +231,19 @@ def cuda_ms(fn, reps, warm=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, launches=20, reps=5):
+    """Mean ms per call of fn() replayed from a CUDA graph of `launches`
+    calls (after one warm-up call outside it): the card's time alone, with
+    no host work between launches. fn launches on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(g.replay, reps) / launches
 
 
 def main_path_streams(rng, sizes, raw_qual=False):
@@ -1319,11 +1339,28 @@ AES_OPS_PER_BLOCK = 448   # 14 rounds x 16 bytes x (one lookup, one XOR)
 PW = "smoke-password"
 
 
+def aes_launch(rk, hi, lo, buf):
+    """One launch of the aes256_ctr kernel on `buf` through its C entry
+    point, on the current stream (for graph_ms)."""
+    from genozip_tpu_torch.ops import aes_cuda
+    words = (ctypes.c_uint32 * 60)(*rk)
+
+    def launch():
+        rc = aes_cuda.lib().aes256_ctr(
+            words, hi, lo, buf.data_ptr(), buf.numel(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"aes256_ctr: CUDA error {rc}")
+    return launch
+
+
 def check_aes(rng):
     """The aes256_ctr kernel against its plain version on the card, at
-    AES_SIZES x AES_COUNTERS, byte for byte; then both timed (CUDA events,
-    mean of 5 after a warm-up) at 1 MiB and 64 MiB. Returns {n: (max_abs_err,
-    ms, plain ms, bytes, bound ms, bound by)} for the timed sizes."""
+    AES_SIZES x AES_COUNTERS, byte for byte; then timed at 1 MiB and 64 MiB:
+    through its wrapper and the plain version (CUDA events, mean of 5 after
+    a warm-up), and the kernel alone (graph_ms of its C entry point).
+    Returns {n: (max_abs_err, ms, plain ms, bytes, bound ms, bound by,
+    ms alone)} for the timed sizes."""
     from genozip_tpu_torch.ops import aes_cuda, aes_torch
     key = rng.integers(0, 256, 32, np.uint8).tobytes()
     rk = aes_torch.round_keys(key)
@@ -1343,15 +1380,18 @@ def check_aes(rng):
             checked += 1
         if n in (MIB, 64 * MIB):
             buf = data.clone()
-            ms = cuda_ms(lambda: aes_cuda.aes256_ctr_xor_(buf, rk, hi, lo), 5)
+            ms = cuda_ms(lambda: aes_cuda.aes256_ctr_xor_(buf, rk, hi, lo),
+                         5)
+            ams = graph_ms(aes_launch(rk, hi, lo, buf))
             pms = cuda_ms(lambda: aes_torch.aes256_ctr_plain(rk, hi, lo, buf),
                           5)
             nbytes = 2 * n
             bms, by = bound_ms(nbytes, (n + 15) // 16 * AES_OPS_PER_BLOCK)
-            meas[n] = (0, ms, pms, nbytes, bms, by)
-            log(f"kernel aes256_ctr: {ms:.4f} ms at {n} bytes "
-                f"({n / 1e6 / ms:.2f} GB/s), plain {pms:.3f} ms, bound "
-                f"{bms:.6f} ms ({by}), share {100 * bms / ms:.2f}%")
+            meas[n] = (0, ms, pms, nbytes, bms, by, ams)
+            log(f"kernel aes256_ctr: {ms:.4f} ms at {n} bytes through the "
+                f"wrapper ({n / 1e6 / ms:.2f} GB/s; {ams:.4f} ms alone), "
+                f"plain {pms:.3f} ms, bound {bms:.6f} ms ({by}), share "
+                f"{100 * bms / ms:.2f}% ({100 * bms / ams:.2f}% alone)")
     log(f"kernel aes256_ctr: equal to plain at {checked} (n, counter0) "
         f"cases, n in {AES_SIZES}")
     return meas
@@ -1726,6 +1766,9 @@ def small_tools(tmp, fq16, sam16, small_mib):
 
 CARD = "cuda:0"       # the card of phase 11's device lists
 SEED_CAND_OPS = 34   # a candidate's k-mer, hash, lookup and checks
+# rows of the spread edge batches: over twice the warps resident on an H100
+# (3,168 at Lb <= 1024), so each warp's stride crosses reads of other lengths
+SEED_SPREAD_ROWS = 8192
 MESH_VB_READS = 16 * MIB // 342   # one 16 MiB VB of 150 bp reads
 
 
@@ -1755,65 +1798,98 @@ def seed_align_traffic(codes, lens, rh, G, hash_bits):
 
 
 def seed_align_batches(ref, fq, rng):
-    """The edge reads (lengths 1, 15, 16, 17, Lb - 1, Lb and 100, both
-    strands, substitutions and codes above 3) and one cfg4 VB of reads
-    (the first MESH_VB_READS reads of `fq`, 150 bp, Lb = 256), as padded
+    """The edge batches, as (label, codes, lens, src, tie row, tie start):
+    tests/torch_seed_reads.edge_batch at Lb = 256 and at Lb = 130 (rows
+    not a multiple of 4 bytes), each spread over SEED_SPREAD_ROWS rows (row
+    i is the batch's row src[i]); the 256 one also with its codes one byte
+    past an aligned address (label "offset"). Then one cfg4 VB of reads
+    (the first MESH_VB_READS reads of `fq`, 150 bp, Lb = 256) as padded
     (codes, lens) numpy arrays."""
     from genozip_tpu_torch.ops import pack
-    G, Lb = ref.length, 256
-    rows, lens = [], []
-    for L in (1, 15, 16, 17, Lb - 1, Lb) + (100,) * 26:
-        p = int(rng.integers(0, G - L))
-        c = np.array(ref.codes[p:p + L], np.uint8)
-        if rng.random() < 0.5:
-            c = (c ^ 3)[::-1]
-        if L > 20:
-            c[rng.integers(0, L, 3)] = rng.integers(0, 8, 3)
-        row = np.zeros(Lb, np.uint8)
-        row[:L] = c
-        rows.append(row)
-        lens.append(L)
-    edge = (np.stack(rows), np.asarray(lens, np.int32))
+    from tests.torch_seed_reads import edge_batch, spread
+    edges = []
+    for Lb in (256, 130):
+        codes, lens, tie, p1 = edge_batch(ref, rng, Lb)
+        codes, lens, src = spread(codes, lens, rng, SEED_SPREAD_ROWS)
+        edges.append((f"edge Lb={Lb}", codes, lens, src, tie, p1))
+    edges.append(("offset",) + edges[0][1:])
+    Lb = 256
     lines = head_records(fq, MESH_VB_READS).split(b"\n")[1::4]
     seq = np.frombuffer(b"".join(lines), np.uint8).reshape(len(lines), -1)
     codes = np.zeros((seq.shape[0], Lb), np.uint8)
     codes[:, :seq.shape[1]] = pack.BASE2BIT[seq]
-    return edge, (codes, np.full(seq.shape[0], seq.shape[1], np.int32))
+    return edges, (codes, np.full(seq.shape[0], seq.shape[1], np.int32))
+
+
+def seed_launch(c, ln, genome, rh, hb):
+    """One launch of the seed_align kernel through its C entry point on
+    outputs allocated once, on the current stream (for graph_ms)."""
+    from genozip_tpu_torch.ops import align_cuda
+    R, Lb = c.shape
+    outs = [torch.empty(R, dtype=dt, device=c.device) for dt in
+            (torch.int64, torch.bool, torch.int32, torch.bool)]
+
+    def launch():
+        rc = align_cuda.lib().seed_align(
+            c.data_ptr(), ln.data_ptr(), R, Lb, genome.data_ptr(),
+            rh.data_ptr(), genome.numel(), hb, *(t.data_ptr() for t in outs),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"seed_align: CUDA error {rc}")
+    return launch
 
 
 def check_seed_align(ref, fq):
     """The seed_align kernel against its plain version on the card, output
-    for output, at the edge reads and at one cfg4 VB; then both timed (CUDA
-    events, the kernel mean of 5 after a warm-up) at the VB. Returns
-    (max_abs_err, ms, plain ms, bytes, bound ms, bound by)."""
+    for output, at the edge batches (seed_align_batches; the tie read's
+    first candidate must win in each) and at one cfg4 VB; then timed at the
+    VB: through its wrapper and the plain version (CUDA events), and the
+    kernel alone (graph_ms of its C entry point). Returns (max_abs_err, ms,
+    plain ms, bytes, bound ms, bound by, ms alone)."""
     from genozip_tpu_torch.ops import align_cuda, align_torch
     hb = ref.hash_bits
     genome = torch.from_numpy(np.array(ref.codes, np.uint8)).cuda()
     rh = torch.from_numpy(np.array(ref.refhash[:1 << hb], np.uint32)
                           .view(np.int32)).cuda()
-    edge, vb = seed_align_batches(ref, fq, np.random.default_rng(18))
-    for label, (codes, lens) in (("edge", edge), ("vb", vb)):
+    edges, vb = seed_align_batches(ref, fq, np.random.default_rng(18))
+    err = 0
+    for label, codes, lens, src, tie, p1 in edges + [("vb",) + vb + (
+            None, None, None)]:
         c, ln = torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda()
+        if label == "offset":
+            buf = torch.empty(codes.size + 1, dtype=torch.uint8,
+                              device="cuda")
+            c = buf[1:].view(codes.shape)
+            c.copy_(torch.from_numpy(codes))
+            assert c.data_ptr() % 4
         k = align_cuda.seed_align(c, ln, genome, rh, hb)
         p = align_torch.seed_align_plain(c, ln, genome, rh, hb)
         torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
-        if err or not all(torch.equal(a, b) for a, b in zip(k, p)):
+        e = max(int((a.long() - b.long()).abs().max()) for a, b in zip(k, p))
+        if e or not all(torch.equal(a, b) for a, b in zip(k, p)):
             raise SystemExit(f"seed_align {label}: kernel differs from plain "
-                             f"(max_abs_err {err})")
+                             f"(max_abs_err {e})")
+        err = max(err, e)
         log(f"kernel seed_align {label}: R={codes.shape[0]} Lb="
-            f"{codes.shape[1]} equal to plain, max_abs_err {err}, aligned "
+            f"{codes.shape[1]} equal to plain, max_abs_err {e}, aligned "
             f"{k[3].float().mean().item():.4f}")
+        if src is not None:
+            ties = torch.from_numpy(np.nonzero(src == tie)[0]).cuda()
+            if not ((k[0][ties] == p1).all() and k[1][ties].all()):
+                raise SystemExit(f"seed_align {label}: the tie read's first "
+                                 "candidate did not win")
     ms = cuda_ms(lambda: align_cuda.seed_align(c, ln, genome, rh, hb), 5)
+    ams = graph_ms(seed_launch(c, ln, genome, rh, hb))
     pms = cuda_ms(lambda: align_torch.seed_align_plain(c, ln, genome, rh, hb),
                   1)
     nbytes, ops = seed_align_traffic(c, ln, rh, ref.length, hb)
     bms, by = bound_ms(nbytes, ops)
-    log(f"kernel seed_align: {ms:.4f} ms at one cfg4 VB ({codes.shape[0]} "
-        f"reads, Lb={codes.shape[1]}), plain {pms:.3f} ms, bound {bms:.6f} "
-        f"ms ({by}: {nbytes} bytes, {ops} operations), share "
-        f"{100 * bms / ms:.2f}%, on {torch.cuda.get_device_name(0)}")
-    return err, ms, pms, nbytes, bms, by
+    log(f"kernel seed_align: {ms:.4f} ms through the wrapper at one cfg4 VB "
+        f"({codes.shape[0]} reads, Lb={codes.shape[1]}; {ams:.4f} ms "
+        f"alone), plain {pms:.3f} ms, bound {bms:.6f} ms ({by}: {nbytes} "
+        f"bytes, {ops} operations), share {100 * bms / ms:.2f}% "
+        f"({100 * bms / ams:.2f}% alone), on {torch.cuda.get_device_name(0)}")
+    return err, ms, pms, nbytes, bms, by, ams
 
 
 def aligned_share(z, ref):
@@ -2247,15 +2323,82 @@ for label, streams, name, order, lanes in json.loads(sys.argv[2]):
     out[label] = chip_smoke.check_kernel(name, order,
                                          name.startswith("rans_encode"),
                                          datas, lanes, time_plain=False)[1]
+if "aes__key" in z.files:   # the AES and seed aligner kernels
+    import importlib.util
+    import torch
+    from genozip_tpu_torch.ops import aes_cuda, aes_torch
+    from genozip_tpu_torch.ops import align_cuda, align_torch
+    # graph_ms, aes_launch and seed_launch of the chip_smoke.py that runs
+    # --ab: a parent's may lack them, and they launch through whichever
+    # genozip_tpu_torch this process imports
+    spec = importlib.util.spec_from_file_location("ab_helpers", sys.argv[3])
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    rk = aes_torch.round_keys(z["aes__key"].tobytes())
+    hi, lo = aes_torch.split_counter(z["aes__ctr"].tobytes())
+    for label in ("aes_1mib", "aes_64mib"):
+        data = torch.from_numpy(z[label]).cuda()
+        k = aes_cuda.aes256_ctr_xor_(data.clone(), rk, hi, lo)
+        if not torch.equal(k, aes_torch.aes256_ctr_plain(rk, hi, lo,
+                                                         data.clone())):
+            raise SystemExit(f"{label}: kernel differs from plain")
+        out[label] = chip_smoke.cuda_ms(
+            lambda: aes_cuda.aes256_ctr_xor_(data, rk, hi, lo), 20)
+        out[label + "_device"] = ab.graph_ms(ab.aes_launch(rk, hi, lo, data))
+    hb = int(z["sa__hash_bits"])
+    args = [torch.from_numpy(z[k]).cuda()
+            for k in ("sa__codes", "sa__lens", "sa__genome", "sa__rh")]
+    k = align_cuda.seed_align(*args, hb)
+    p = align_torch.seed_align_plain(*args, hb)
+    if not all(torch.equal(a, b) for a, b in zip(k, p)):
+        raise SystemExit("seed_align: kernel differs from plain")
+    out["seed_align_vb"] = chip_smoke.cuda_ms(
+        lambda: align_cuda.seed_align(*args, hb), 20)
+    out["seed_align_vb_device"] = ab.graph_ms(ab.seed_launch(*args, hb))
 print("AB " + json.dumps(out))
 """
+AB_LABELS = ("aes_1mib", "aes_1mib_device", "aes_64mib", "aes_64mib_device",
+             "seed_align_vb", "seed_align_vb_device")
+
+
+def ab_inputs(rng, genome_bp=CHR20_BP):
+    """The inputs of --ab's AES and seed aligner cases: a key, a counter
+    whose low 8 bytes carry, 1 MiB and 64 MiB of data; a genome of
+    `genome_bp` bases (synth.genome) with its refhash layer 0
+    (refstore.build_refhash at 2^24 slots), and one cfg4 VB of 150 bp reads
+    off it (MESH_VB_READS, 0.3% substitutions, every other one reverse
+    complemented, as the pairs' R2), padded to Lb = 256."""
+    from genozip_tpu_torch import synth
+    from genozip_tpu_torch.ops import pack
+    from genozip_tpu_torch.ref import refstore
+    out = {"aes__key": rng.integers(0, 256, 32, np.uint8),
+           "aes__ctr": np.frombuffer(AES_COUNTERS[2], np.uint8),
+           "aes_1mib": rng.integers(0, 256, MIB, np.uint8),
+           "aes_64mib": rng.integers(0, 256, 64 * MIB, np.uint8)}
+    codes = pack.BASE2BIT[synth.genome(rng, genome_bp)]
+    hb = refstore.HASH_BITS_DEFAULT
+    rh = refstore.build_refhash(codes, hb, layers=1)
+    starts = rng.integers(0, genome_bp - 150, MESH_VB_READS)
+    reads = pack.BASE2BIT[synth._reads(rng, pack.ACGT[codes], starts, 150)]
+    reads[1::2] = (reads[1::2] ^ 3)[:, ::-1]
+    rows = np.zeros((MESH_VB_READS, 256), np.uint8)
+    rows[:, :150] = reads
+    out.update({"sa__genome": codes, "sa__rh": rh.view(np.int32),
+                "sa__codes": rows,
+                "sa__lens": np.full(MESH_VB_READS, 150, np.int32),
+                "sa__hash_bits": np.array(hb)})
+    return out
 
 
 def ab_kernels(parent, change):
-    """Times the four kernels of two checkouts on the same streams, each
-    checkout in a fresh interpreter through its own chip_smoke.check_kernel
-    (byte-checked against its plain version), in the order parent, change,
-    change, parent; prints each run and the medians."""
+    """Times the six kernels of two checkouts on the same inputs, each
+    checkout in a fresh interpreter, in the order parent, change, change,
+    parent; prints each run and the medians. The rANS kernels go through
+    each checkout's own chip_smoke.check_kernel (byte-checked against its
+    plain version); aes256_ctr (1 and 64 MiB, a counter that carries) and
+    seed_align (one cfg4 VB off a 64 Mbp genome, ab_inputs) through their
+    wrappers and alone (CUDA graphs of their C entry points), each checked
+    against its plain version."""
     rng = np.random.default_rng(2024)
     sizes = lambda: [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)]
     seqs, quals = main_path_streams(rng, sizes())
@@ -2264,6 +2407,9 @@ def ab_kernels(parent, change):
     data = {"seq_r8": seqs, "rawqual_r8": raw, "qual_r8": quals,
             "vbseq": one_seq, "vbqual": one_qual,
             "refhash": [refhash_like(rng)]}
+    t = time.time()
+    extra = ab_inputs(rng)
+    log(f"ab: AES and seed_align inputs made in {time.time() - t:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -2271,12 +2417,15 @@ def ab_kernels(parent, change):
     with tempfile.TemporaryDirectory(prefix="gxz_ab_") as tmp:
         npz = os.path.join(tmp, "streams.npz")
         np.savez(npz, **{f"{k}__{i}": np.frombuffer(b, np.uint8)
-                         for k, v in data.items() for i, b in enumerate(v)})
+                         for k, v in data.items() for i, b in enumerate(v)},
+                 **extra)
+        del extra
         for who, path in (("parent", parent), ("change", change),
                           ("change", change), ("parent", parent)):
             env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
             res = subprocess.run(
-                [sys.executable, "-c", AB_CHILD, npz, json.dumps(AB_CASES)],
+                [sys.executable, "-c", AB_CHILD, npz, json.dumps(AB_CASES),
+                 os.path.abspath(__file__)],
                 cwd=path, env=env, capture_output=True, text=True)
             if res.returncode != 0:
                 raise SystemExit(f"ab {who} ({path}) failed:\n"
@@ -2284,7 +2433,7 @@ def ab_kernels(parent, change):
             line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
             runs.append((who, json.loads(line[-1][3:])))
             log(f"ab {who}: " + json.dumps(runs[-1][1]))
-    for label, *_ in AB_CASES:
+    for label in [c[0] for c in AB_CASES] + list(AB_LABELS):
         par = sorted(r[label] for w, r in runs if w == "parent")
         chg = sorted(r[label] for w, r in runs if w == "change")
         log(f"ab {label}: parent {par} ms, change {chg} ms, median ratio "
@@ -2293,12 +2442,20 @@ def ab_kernels(parent, change):
     return 0
 
 
+# cfg3's turns: parent and change alternate, then alternate the other way
+# round, so each holds as many early as late slots and a drift over the
+# call (the host warming up, the card's clocks) weighs on both alike
+AB_CFG3_ORDER = ("parent", "change", "parent", "change",
+                 "change", "parent", "change", "parent")
+
+
 def ab_cfg3(parent, change, smi):
     """cfg3 end to end for two checkouts: `zip` and `unzip` of one 512 MiB
     cfg3-shaped FASTQ through each one's CLI in a fresh interpreter
-    (`--device cuda`; wall time includes start-up), in turns parent, change,
-    change, parent; each unzip must give back the input, and the log says
-    whether each archive equals the parent's first one."""
+    (`--device cuda`; wall time includes start-up), in the turns of
+    AB_CFG3_ORDER; each unzip must give back the input, and the log says
+    whether each archive equals the parent's first one, and each side's
+    median."""
     from genozip_tpu_torch import synth
     with tempfile.TemporaryDirectory(prefix="gxz_ab3_") as tmp:
         fq = os.path.join(tmp, "reads512.fastq")
@@ -2306,10 +2463,8 @@ def ab_cfg3(parent, change, smi):
         rates = {"zip": {"parent": [], "change": []},
                  "unzip": {"parent": [], "change": []}}
         same = []
-        for i, (who, path) in enumerate((("parent", parent),
-                                         ("change", change),
-                                         ("change", change),
-                                         ("parent", parent))):
+        for i, who in enumerate(AB_CFG3_ORDER):
+            path = parent if who == "parent" else change
             env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
             z, out = os.path.join(tmp, f"{i}.gxz"), os.path.join(tmp, "out")
             for cmd, argv in (("zip", ["zip", fq, "-o", z, "-q"]),
@@ -2325,8 +2480,9 @@ def ab_cfg3(parent, change, smi):
             os.remove(out)
         for cmd, r in rates.items():
             log(f"ab cfg3 {cmd}: parent {r['parent']} MB/s, change "
-                f"{r['change']} MB/s ({size} bytes, fresh interpreter each) "
-                f"on {smi}")
+                f"{r['change']} MB/s in the order {AB_CFG3_ORDER}, medians "
+                f"{np.median(r['parent']):.2f} and {np.median(r['change']):.2f}"
+                f" ({size} bytes, fresh interpreter each) on {smi}")
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
@@ -2340,9 +2496,10 @@ def main(argv=None):
                     help="comma-separated subset of " + ", ".join(PHASES) +
                     " (default: all, and only then the result lines)")
     ap.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"),
-                    help="time the kernels, then cfg3 zip and unzip, of two "
-                         "checkouts in turns (parent, change, change, "
-                         "parent) and stop")
+                    help="time the kernels of two checkouts in turns "
+                         "(parent, change, change, parent), then cfg3 zip "
+                         "and unzip (parent and change alternating, eight "
+                         "runs), and stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -2449,7 +2606,7 @@ def main(argv=None):
                      "launches_cfg2": counts2[name],
                      "launches_tools": counts10[name],
                      "launches_parallel": counts11[name]})
-    err, ms, pms, nbytes, bms, by = aes[64 * MIB]
+    err, ms, pms, nbytes, bms, by, ams = aes[64 * MIB]
     rows.append({"name": "aes256_ctr", "route": "cuda",
                  "source": "genozip_tpu_torch/csrc/aes.cu",
                  "replaces": "genozip_tpu/native/gxz_native.cpp:1244",
@@ -2462,11 +2619,13 @@ def main(argv=None):
                  "note": "no TPU kernel: genozip_tpu runs AES-256-CTR in "
                          "host C++",
                  "shape": "64 MiB", "bytes": nbytes,
+                 "ms_alone": round(ams, 4),
                  "ms_1mib": round(aes[MIB][1], 4),
+                 "ms_1mib_alone": round(aes[MIB][6], 4),
                  "plain_ms_1mib": round(aes[MIB][2], 4),
                  "bound_ms_1mib": round(aes[MIB][4], 6),
                  "launches_tools": counts10["aes256_ctr"]})
-    err, ms, pms, nbytes, bms, by = seed
+    err, ms, pms, nbytes, bms, by, ams = seed
     rows.append({"name": "seed_align", "route": "cuda",
                  "source": "genozip_tpu_torch/csrc/seed_align.cu",
                  "replaces": "genozip_tpu/parallel/aligner_sharded.py:65",
@@ -2479,6 +2638,7 @@ def main(argv=None):
                  "note": "no Pallas kernel: genozip_tpu's mesh aligner step "
                          "is the XLA device function make_sharded_aligner's "
                          "local (X3)",
+                 "ms_alone": round(ams, 4),
                  "shape": f"one cfg4 VB, {MESH_VB_READS} reads, Lb 256",
                  "bytes": nbytes, "launches_parallel": seed_launches})
     print(smi)

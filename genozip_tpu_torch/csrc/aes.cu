@@ -8,33 +8,49 @@
 // genozip_tpu runs it in host C++. The plain version is
 // ops/aes_torch.aes256_ctr_plain, and the two are byte-equal.
 //
-// Design: CTR blocks are independent, so one thread computes one block's
-// keystream from counter0 + its block index (a 128-bit add done as two u64
-// with a carry) and XORs it into its 16 data bytes with one 16-byte load and
-// store (the buffer is 16-byte aligned; the last partial block goes byte by
-// byte). The round keys (60 big-endian words, expanded on the host) travel
-// by value in the launch's parameters, read with uniform indices. The rounds
-// are the four-T-table form: each block of threads builds T0..T3 (the
-// S-box times the MixColumns column, rotated) and the S-box in shared memory,
-// 4.25 KB, so a round is 16 shared lookups, 16 XORs and a round key per
-// column. A grid-stride loop over blocks, at most 16 blocks an SM.
+// What bounds it: not the bytes (n read, n written: 2n / 3.35 TB/s, 0.04 ms
+// at 64 MiB) but the table lookups: a 16-byte block takes 14 rounds of 16
+// lookups, 224 shared-memory reads at random indices. The SM serves 32
+// lanes' reads a clock only when they fall in 32 different banks; with the
+// four T-tables of the first version (one copy each) a warp's random
+// indices collide 3-4 ways, so each lookup took 3-4 clocks.
 //
-// What bounds it: the bytes (n read, n written: 2n / 3.35 TB/s, 0.04 ms at
-// 64 MiB) are far below its work, 14 rounds of 16 shared-memory lookups a
-// 16-byte block (224 lookups, about 14 a byte), whose random indices
-// conflict on the 32 banks. Speed is for a later change (bit-sliced rounds,
-// or T-tables replicated over banks).
+// Design: one T-table replicated over the banks (the replicated-table form
+// in C. Tezcan, "Optimization of Advanced Encryption Standard on Graphics
+// Processing Units", IEEE Access, 2021). T0[x] = (2s, s, s, 3s) for
+// s = S[x] is stored 32 times, copy l of entry x at word 32 x + l (32 KB
+// of static shared memory), and lane l reads only copy l, so it always
+// hits bank l: a warp's 32 lookups take one clock whatever the indices.
+// T1..T3 are T0 rotated by 8, 16 and 24 bits, one PRMT (__byte_perm) after
+// the lookup, and the last round's S-box byte is byte 1 of T0[x], so no
+// other table is held; the last round's PRMTs also put the keystream bytes
+// in memory order, so no byte swap follows. Without conflicts the rounds
+// are bound by the ALU pipe instead: a lookup costs one operation to take
+// the byte out of the state and one to make its address. The address is
+// base + x * stride with `stride` (128 bytes) passed as an argument, which
+// compiles to one IMAD on the FMA pipe; a constant stride compiled to a
+// shift, a merge and a LEA, all on the ALU pipe. Each block of threads
+// builds T0 once (256 S-box reads, then 32 copies with 16-byte stores); the
+// grid is persistent, as many blocks as are resident on the card
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), so the table is built
+// once a block and not once a 256 counter blocks. Otherwise as before: one
+// thread a counter block from counter0 + its index (a 128-bit add as two
+// u64 with a carry), round keys by value in the launch's parameters
+// (uniform reads), a 16-byte load and store of the data (the buffer is
+// 16-byte aligned) and the last partial block byte by byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "persistent.cuh"
+
 namespace {
 
-constexpr int NT = 256;              // threads a block
-constexpr int MAX_BLOCKS = 132 * 16;  // a grid-stride loop past this
+constexpr int NT = 256;        // threads a block
+constexpr int COPIES = 32;     // T0 replicas: one a bank
 
 struct RoundKeys {
-  uint32_t w[60];                    // the key schedule, big-endian words
+  uint32_t w[60];              // the key schedule, big-endian words
 };
 
 __device__ const uint8_t SBOX[256] = {
@@ -55,32 +71,49 @@ __device__ const uint8_t SBOX[256] = {
 0xe1,0xf8,0x98,0x11,0x69,0xd9,0x8e,0x94,0x9b,0x1e,0x87,0xe9,0xce,0x55,0x28,0xdf,
 0x8c,0xa1,0x89,0x0d,0xbf,0xe6,0x42,0x68,0x41,0x99,0x2d,0x0f,0xb0,0x54,0xbb,0x16};
 
-__device__ __forceinline__ uint32_t ror8(uint32_t x) {
-  return (x >> 8) | (x << 24);
-}
+// __byte_perm selectors (tests/test_torch_crypt.py models them): rotations
+// right by 8, 16 and 24 bits turn T0[x] into T1[x], T2[x], T3[x]
+constexpr unsigned ROR8 = 0x0321, ROR16 = 0x1032, ROR24 = 0x2103;
+// last round: byte 1 of T0[x] is S[x]; two lookups' S bytes into bytes 0-1,
+// two into bytes 2-3, then the halves joined: the word in memory order
+constexpr unsigned LO_PAIR = 0x0051, HI_PAIR = 0x5100, JOIN = 0x7610;
 
-// big-endian keystream word -> the little-endian word that XORs memory
 __device__ __forceinline__ uint32_t bswap(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
 
-__global__ void __launch_bounds__(NT)
+// one word of shared memory at a 32-bit shared address
+__device__ __forceinline__ uint32_t lds(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__global__ void __launch_bounds__(NT, 4)
 aes256_ctr_kernel(const RoundKeys rk, uint64_t ctr_hi, uint64_t ctr_lo,
-                  uint8_t* __restrict__ data, int64_t n) {
-  __shared__ uint32_t T0[256], T1[256], T2[256], T3[256];
-  __shared__ uint32_t S[256];
-  for (int i = threadIdx.x; i < 256; i += NT) {
-    const uint32_t s = SBOX[i];
+                  uint8_t* __restrict__ data, int64_t n, uint32_t stride) {
+  __shared__ __align__(16) uint32_t T[256 * COPIES];
+  __shared__ uint32_t T0[256];
+  static_assert(NT == 256, "one thread an S-box entry");
+  {
+    const uint32_t s = SBOX[threadIdx.x];
     const uint32_t s2 = ((s << 1) ^ ((s >> 7) * 0x1b)) & 0xff;
     // column (2s, s, s, 3s): row 0's byte through MixColumns
-    const uint32_t t = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
-    T0[i] = t;
-    T1[i] = ror8(t);
-    T2[i] = ror8(ror8(t));
-    T3[i] = ror8(ror8(ror8(t)));
-    S[i] = s;
+    T0[threadIdx.x] = (s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s);
   }
   __syncthreads();
+  for (int w = 4 * threadIdx.x; w < 256 * COPIES; w += 4 * NT) {
+    const uint32_t t = T0[w >> 5];
+    *reinterpret_cast<uint4*>(&T[w]) = make_uint4(t, t, t, t);
+  }
+  __syncthreads();
+  // copy `lane` of entry x at base + x * stride (stride: COPIES * 4 bytes,
+  // an argument so that the address is one IMAD; see the note above)
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(T) +
+                        4 * (threadIdx.x & (COPIES - 1));
+  // the last round key in memory order
+  const uint32_t l0 = bswap(rk.w[56]), l1 = bswap(rk.w[57]),
+                 l2 = bswap(rk.w[58]), l3 = bswap(rk.w[59]);
   const int64_t nblk = (n + 15) >> 4;
   for (int64_t b = (int64_t)blockIdx.x * NT + threadIdx.x; b < nblk;
        b += (int64_t)gridDim.x * NT) {
@@ -90,40 +123,48 @@ aes256_ctr_kernel(const RoundKeys rk, uint64_t ctr_hi, uint64_t ctr_lo,
     uint32_t s1 = (uint32_t)hi ^ rk.w[1];
     uint32_t s2 = (uint32_t)(lo >> 32) ^ rk.w[2];
     uint32_t s3 = (uint32_t)lo ^ rk.w[3];
+#define LOOK(x) lds(base + (x) * stride)
+#define B3(s) ((s) >> 24)
+#define B2(s) __byte_perm((s), 0, 0x4442)
+#define B1(s) __byte_perm((s), 0, 0x4441)
+#define B0(s) ((s) & 0xff)
+#define COL(a, b, c, d, k)                                                  \
+  (LOOK(B3(a)) ^ __byte_perm(LOOK(B2(b)), 0, ROR8) ^                        \
+   __byte_perm(LOOK(B1(c)), 0, ROR16) ^ __byte_perm(LOOK(B0(d)), 0, ROR24) ^ \
+   (k))
 #pragma unroll
     for (int r = 1; r < 14; r++) {
-      const uint32_t t0 = T0[s0 >> 24] ^ T1[(s1 >> 16) & 0xff] ^
-                          T2[(s2 >> 8) & 0xff] ^ T3[s3 & 0xff] ^ rk.w[4 * r];
-      const uint32_t t1 = T0[s1 >> 24] ^ T1[(s2 >> 16) & 0xff] ^
-                          T2[(s3 >> 8) & 0xff] ^ T3[s0 & 0xff] ^
-                          rk.w[4 * r + 1];
-      const uint32_t t2 = T0[s2 >> 24] ^ T1[(s3 >> 16) & 0xff] ^
-                          T2[(s0 >> 8) & 0xff] ^ T3[s1 & 0xff] ^
-                          rk.w[4 * r + 2];
-      const uint32_t t3 = T0[s3 >> 24] ^ T1[(s0 >> 16) & 0xff] ^
-                          T2[(s1 >> 8) & 0xff] ^ T3[s2 & 0xff] ^
-                          rk.w[4 * r + 3];
+      const uint32_t t0 = COL(s0, s1, s2, s3, rk.w[4 * r]);
+      const uint32_t t1 = COL(s1, s2, s3, s0, rk.w[4 * r + 1]);
+      const uint32_t t2 = COL(s2, s3, s0, s1, rk.w[4 * r + 2]);
+      const uint32_t t3 = COL(s3, s0, s1, s2, rk.w[4 * r + 3]);
       s0 = t0; s1 = t1; s2 = t2; s3 = t3;
     }
-    // last round: SubBytes and ShiftRows without MixColumns
-    const uint32_t k0 = ((S[s0 >> 24] << 24) | (S[(s1 >> 16) & 0xff] << 16) |
-                         (S[(s2 >> 8) & 0xff] << 8) | S[s3 & 0xff]) ^ rk.w[56];
-    const uint32_t k1 = ((S[s1 >> 24] << 24) | (S[(s2 >> 16) & 0xff] << 16) |
-                         (S[(s3 >> 8) & 0xff] << 8) | S[s0 & 0xff]) ^ rk.w[57];
-    const uint32_t k2 = ((S[s2 >> 24] << 24) | (S[(s3 >> 16) & 0xff] << 16) |
-                         (S[(s0 >> 8) & 0xff] << 8) | S[s1 & 0xff]) ^ rk.w[58];
-    const uint32_t k3 = ((S[s3 >> 24] << 24) | (S[(s0 >> 16) & 0xff] << 16) |
-                         (S[(s1 >> 8) & 0xff] << 8) | S[s2 & 0xff]) ^ rk.w[59];
+    // last round: SubBytes and ShiftRows without MixColumns, in memory order
+#define LAST(a, b, c, d, k)                                                 \
+  (__byte_perm(__byte_perm(LOOK(B3(a)), LOOK(B2(b)), LO_PAIR),              \
+               __byte_perm(LOOK(B1(c)), LOOK(B0(d)), HI_PAIR), JOIN) ^ (k))
+    const uint32_t k0 = LAST(s0, s1, s2, s3, l0);
+    const uint32_t k1 = LAST(s1, s2, s3, s0, l1);
+    const uint32_t k2 = LAST(s2, s3, s0, s1, l2);
+    const uint32_t k3 = LAST(s3, s0, s1, s2, l3);
+#undef LAST
+#undef COL
+#undef B0
+#undef B1
+#undef B2
+#undef B3
+#undef LOOK
     const int64_t off = b << 4;
     if (off + 16 <= n) {
       uint4* p = reinterpret_cast<uint4*>(data + off);
       uint4 v = *p;
-      v.x ^= bswap(k0); v.y ^= bswap(k1); v.z ^= bswap(k2); v.w ^= bswap(k3);
+      v.x ^= k0; v.y ^= k1; v.z ^= k2; v.w ^= k3;
       *p = v;
     } else {
       const uint32_t ks[4] = {k0, k1, k2, k3};
       for (int j = 0; off + j < n; j++)
-        data[off + j] ^= (uint8_t)(ks[j >> 2] >> (24 - 8 * (j & 3)));
+        data[off + j] ^= (uint8_t)(ks[j >> 2] >> (8 * (j & 3)));
     }
   }
 }
@@ -143,9 +184,12 @@ int aes256_ctr(const uint32_t* rk, unsigned long long ctr_hi,
   for (int i = 0; i < 60; i++) keys.w[i] = rk[i];
   const long long nblk = (n + 15) >> 4;
   const long long want = (nblk + NT - 1) / NT;
-  const int grid = (int)(want < MAX_BLOCKS ? want : MAX_BLOCKS);
+  static int resident[persistent::MAX_DEVICES][1];
+  const int most = persistent::resident_blocks(resident, 0, aes256_ctr_kernel,
+                                               NT, 0);
+  const int grid = (int)(want < most ? want : most);
   aes256_ctr_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      keys, ctr_hi, ctr_lo, (uint8_t*)data, n);
+      keys, ctr_hi, ctr_lo, (uint8_t*)data, n, COPIES * 4);
   return (int)cudaGetLastError();
 }
 

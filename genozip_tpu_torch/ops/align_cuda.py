@@ -8,7 +8,11 @@ library is built with nvcc for sm_90a at first use, like the rANS kernels
 with ctypes. The wrapper checks its tensors; on CUDA tensors it launches the
 kernel on the current stream (and adds one to `launches["seed_align"]`) or
 raises `DeviceKernelError`, and on CPU tensors it runs the plain version
-`align_torch.seed_align_plain`.
+`align_torch.seed_align_plain`. The kernel reads the genome in aligned
+4-byte words and keeps each read's row and its reverse complement in
+shared memory, so on the card the genome must be 4-byte aligned and Lb at
+most the kernel's MAX_LB (16384); the wrapper raises ValueError otherwise,
+the second from the entry point's cudaErrorInvalidValue.
 """
 
 import ctypes
@@ -20,6 +24,7 @@ from . import align_torch, rans_cuda
 from .rans_cuda import DeviceKernelError
 
 launches = {"seed_align": 0}
+INVALID_VALUE = 1   # cudaErrorInvalidValue: arguments the kernel refuses
 
 _lock = threading.Lock()
 _lib = None
@@ -54,7 +59,8 @@ def seed_align(codes: torch.Tensor, lens: torch.Tensor, genome: torch.Tensor,
     """codes uint8 (R, Lb), lens int32 (R,), genome uint8 (G,), rh int32
     (2^hash_bits,) holding u32 refhash slots, all on one device ->
     (gpos int64 (R,) of u32 values, 0xFFFFFFFF for none; is_fwd bool;
-    nmm int32; aligned bool) on that device."""
+    nmm int32; aligned bool) on that device. On the card the genome must
+    be 4-byte aligned (a tensor of its own is) and Lb at most 16384."""
     for name, t, dt, nd in (("codes", codes, torch.uint8, 2),
                             ("lens", lens, torch.int32, 1),
                             ("genome", genome, torch.uint8, 1),
@@ -80,6 +86,9 @@ def seed_align(codes: torch.Tensor, lens: torch.Tensor, genome: torch.Tensor,
                                             hash_bits)
     if dev.type != "cuda":
         raise ValueError(f"device {dev} not supported")
+    if genome.data_ptr() % 4:
+        raise ValueError("genome: the kernel reads 4-byte words and needs a "
+                         "4-byte aligned tensor")
     gpos = torch.empty(R, dtype=torch.int64, device=dev)
     fwd = torch.empty(R, dtype=torch.bool, device=dev)
     nmm = torch.empty(R, dtype=torch.int32, device=dev)
@@ -91,6 +100,11 @@ def seed_align(codes: torch.Tensor, lens: torch.Tensor, genome: torch.Tensor,
                 codes.data_ptr(), lens.data_ptr(), R, Lb, genome.data_ptr(),
                 rh.data_ptr(), G, hash_bits, gpos.data_ptr(), fwd.data_ptr(),
                 nmm.data_ptr(), aligned.data_ptr(), stream)
+        if rc == INVALID_VALUE:
+            raise ValueError(f"seed_align: the kernel refuses rows of {Lb} "
+                             "columns: it keeps a read's rows in shared "
+                             "memory and takes at most MAX_LB "
+                             "(csrc/seed_align.cu)")
         if rc != 0:
             raise DeviceKernelError(f"seed_align: CUDA error {rc} at launch")
         with _lock:

@@ -99,6 +99,16 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(d) > os.path.getmtime(out) for d in deps)
 
 
+def nvcc_cmd(src: str, out: str, verbose: bool = False) -> list:
+    """The nvcc command that builds the CUDA source `src` into the shared
+    library `out` for sm_90a, with csrc/ on the include path (its headers
+    also serve a source outside it); with `verbose` ptxas reports each
+    kernel's registers and spills."""
+    return [_nvcc()] + (["-Xptxas=-v"] if verbose else []) + [
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-I", _CSRC, "-o", out, src]
+
+
 def build(verbose: bool = False, names=("rans",)) -> str:
     """Compile each named source of SOURCES into build/lib<name>.so unless it
     is up to date; the nvcc processes run side by side. Returns nvcc's
@@ -110,11 +120,7 @@ def build(verbose: bool = False, names=("rans",)) -> str:
     procs = []
     for name in todo:
         tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
-               tmp, os.path.join(_CSRC, SOURCES[name])]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
+        cmd = nvcc_cmd(os.path.join(_CSRC, SOURCES[name]), tmp, verbose)
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     reports, errors = [], []

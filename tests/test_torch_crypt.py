@@ -74,6 +74,80 @@ def test_plain_aes_equals_reference(n, ctr):
     assert aes_cuda.aes256_ctr(key, COUNTERS[ctr], got, "cpu") == data
 
 
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on u32 arrays (selector nibbles 0-7 only): byte
+    i of the result is byte (sel >> 4i) & 7 of the 8 bytes y:x."""
+    v = x.astype(np.uint64) | (y.astype(np.uint64) << np.uint64(32))
+    out = np.zeros(np.shape(x), np.uint64)
+    for i in range(4):
+        k = (sel >> (4 * i)) & 7
+        out |= ((v >> np.uint64(8 * k)) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _model_keystream(rk, ctr_hi, ctr_lo, nblk):
+    """The keystream of csrc/aes.cu's rounds, as numpy: one T0 table
+    replicated over 32 copies and read at (x << 5) | lane, T1-T3 by
+    __byte_perm rotations, the last round's S-box byte taken from T0 and
+    the words put in memory order by the last round's selectors. Returns
+    the keystream bytes of blocks 0 .. nblk-1."""
+    ror8, ror16, ror24 = 0x0321, 0x1032, 0x2103
+    lo_pair, hi_pair, join = 0x0051, 0x5100, 0x7610
+    s = np.frombuffer(aes_torch.SBOX, np.uint8).astype(np.uint32)
+    s2 = ((s << 1) ^ ((s >> 7) * 0x1B)) & 0xFF
+    T = np.repeat((s2 << 24) | (s << 16) | (s << 8) | (s2 ^ s), 32)
+    b = np.arange(nblk, dtype=np.uint64)
+    lane = (b % 32).astype(np.uint32)
+    with np.errstate(over="ignore"):
+        lo = np.uint64(ctr_lo) + b
+        hi = np.uint64(ctr_hi) + (lo < np.uint64(ctr_lo)).astype(np.uint64)
+    w = [(hi >> np.uint64(32)).astype(np.uint32),
+         (hi & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+         (lo >> np.uint64(32)).astype(np.uint32),
+         (lo & np.uint64(0xFFFFFFFF)).astype(np.uint32)]
+    st = [w[i] ^ np.uint32(rk[i]) for i in range(4)]
+
+    def look(x):
+        return T[(x.astype(np.int64) << 5) | lane]
+
+    def quad(i):
+        a, b_, c, d = (st[(i + k) % 4] for k in range(4))
+        return look(a >> 24), look((b_ >> 16) & 0xFF), \
+            look((c >> 8) & 0xFF), look(d & 0xFF)
+    for r in range(1, 14):
+        new = []
+        for i in range(4):
+            a, b_, c, d = quad(i)
+            new.append(a ^ _byte_perm(b_, 0 * b_, ror8) ^
+                       _byte_perm(c, 0 * c, ror16) ^
+                       _byte_perm(d, 0 * d, ror24) ^ np.uint32(rk[4 * r + i]))
+        st = new
+    words = []
+    for i in range(4):
+        a, b_, c, d = quad(i)
+        last = int.from_bytes(rk[56 + i].to_bytes(4, "big"), "little")
+        words.append(_byte_perm(_byte_perm(a, b_, lo_pair),
+                                _byte_perm(c, d, hi_pair), join) ^
+                     np.uint32(last))
+    return np.stack(words, 1).astype("<u4").view(np.uint8).reshape(-1)
+
+
+@pytest.mark.parametrize("ctr", list(COUNTERS))
+@pytest.mark.parametrize("n", SIZES)
+def test_replicated_table_model_equals_plain(n, ctr):
+    """The kernel's round, modelled in numpy (selectors, byte positions,
+    copy addressing), equals the plain version at the sizes and counter
+    carries the kernel is checked at on the card."""
+    rng = np.random.default_rng(n + 7)
+    rk = aes_torch.round_keys(rng.integers(0, 256, 32, np.uint8).tobytes())
+    hi, lo = aes_torch.split_counter(COUNTERS[ctr])
+    data = rng.integers(0, 256, n, np.uint8)
+    want = aes_torch.aes256_ctr_plain(rk, hi, lo,
+                                      torch.from_numpy(data.copy())).numpy()
+    ks = _model_keystream(rk, hi, lo, (n + 15) // 16)
+    assert np.array_equal(data ^ ks[:n], want)
+
+
 def test_key_schedule_equals_fips197():
     """The key schedule equals genozip_tpu's pure-Python expansion, and the
     plain version gives FIPS-197 appendix C.3 (one block of AES-256): CTR
@@ -250,11 +324,13 @@ def test_cat_password(host_reference, fixed_salt, tmp_path, route,
 
 @pytest.mark.cuda
 def test_aes_kernel_equals_plain_on_the_card():
+    """At every size and carrying counter, and at sizes past one pass of the
+    persistent grid (its blocks cover about 3 MiB at once on an H100)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     rng = np.random.default_rng(11)
     key = rng.integers(0, 256, 32, np.uint8).tobytes()
-    for n in SIZES + (3 << 20,):
+    for n in SIZES + (3 << 20, (8 << 20) + 5, 64 << 20):
         data = rng.integers(0, 256, n, np.uint8).tobytes()
         for c0 in COUNTERS.values():
             before = aes_cuda.launches["aes256_ctr"]
