@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --phases kernels,micro     # a subset, no result
     python3 chip_smoke.py --ab PARENT CHANGE         # kernels of two trees
+    python3 chip_smoke.py --ab-host PARENT CHANGE    # cells end to end
 
 Phases, each printed on its own lines; any failure exits non-zero:
 
@@ -11,7 +12,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
    and the nvcc builds of the kernels (csrc/rans.cu, csrc/aes.cu,
    csrc/seed_align.cu) and of the
    rANS microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas'
-   register and spill report.
+   register and spill report; then the g++ build of the host runtime.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
    on the same inputs, byte for byte (tolerance: exact), at main-path shapes
    (R = 8 streams of 1-4 MiB of packed SEQ and packed QUAL, which has 256
@@ -134,8 +135,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
    card) equal to zip_file's; the flagship step on the card equal to its
    CPU run, and scaling_bench.py's line for one card. Every rANS kernel's
    launches over the phase must be > 0.
+12. host: the port's C++ host runtime (genozip_tpu_torch/native, built by
+   g++ in setup): g++'s version, the build's seconds, the host CPU and
+   whether its AVX-512 rANS cores run; each function held to its numpy
+   version (exact) with the host ms per call both ways: `bam_scan`, the
+   SEQ nibble expansion and its inverse and the tokenizer over phase 7's
+   BAM; the sample-cell split, the AD/PL int lists, the cell join and
+   the PBWT on one 16 MiB VB of phase 9's VCF; rANS (also its scalar
+   coder), ARITH, PACK, ACGT and the byte histogram on 300 payloads of
+   64 B-256 KiB drawn from a cfg3 FASTQ's names, SEQ and QUAL; and the
+   row counts at which dedup and a range copy gain from the runtime.
 
-They run in the order 2, 2b, 5, 3-4, 6, 11, 7-10. The inputs of phases 7-9 are
+They run in the order 2, 2b, 5, 12, 3-4, 6, 11, 7-10, so every phase after
+phase 12 runs with the host runtime on its path. The inputs of phases 7-9 are
 written in a child process (`InputWriter`, numpy on the host) while phases
 2, 2b and 5 keep the card busy; phase 3 starts when it is done. Each
 phase's seconds and the total are printed.
@@ -622,6 +634,359 @@ class InputWriter:
         if self.proc is not None and self.proc.is_alive():
             self.proc.terminate()
             self.proc.join()
+
+
+HOST_PAYLOADS = 300           # codec payloads drawn from cfg3's streams
+HOST_MAX_PAYLOAD = 256 * 1024  # the device threshold: larger go to kernels
+HOST_ARITH_MAX = 64 * 1024     # the numpy arith coder is slow beyond this
+# ARITH has no device route: a few payloads past HOST_ARITH_MAX, up to 1 MiB
+HOST_ARITH_LARGE = (96 * 1024, 256 * 1024, 512 * 1024, 1024 * 1024)
+
+
+class HostTimes:
+    """Calls and seconds of each host function through the C++ runtime
+    and through its numpy version, for the per-call lines."""
+
+    def __init__(self):
+        self.t = {}
+
+    def both(self, name, native_fn, numpy_fn, same=None):
+        """Run both routes; fail unless their results are equal (`same`
+        compares them, default ==). Returns the runtime's result."""
+        t = time.perf_counter()
+        got = native_fn()
+        tn = time.perf_counter() - t
+        t = time.perf_counter()
+        ref = numpy_fn()
+        tp = time.perf_counter() - t
+        ok = same(got, ref) if same else got == ref
+        if not ok:
+            raise SystemExit(f"host {name}: the C++ runtime and numpy differ")
+        c = self.t.setdefault(name, [0, 0.0, 0.0])
+        c[0] += 1
+        c[1] += tn
+        c[2] += tp
+        return got
+
+    def scalar(self, name, fn, want):
+        """The rANS scalar coder's run (a NO_AVX512 build), held to the
+        runtime's bytes `want`."""
+        t = time.perf_counter()
+        if fn() != want:
+            raise SystemExit(f"host {name}: the scalar coder and the runtime "
+                             f"differ")
+        c = self.t.setdefault(name, [0, 0.0, None])
+        c[0] += 1
+        c[1] += time.perf_counter() - t
+
+    def report(self, smi):
+        for name, (n, tn, tp) in self.t.items():
+            ref = f"{1e3 * tp / n:.4f} ms/call numpy, " \
+                f"{tp / max(tn, 1e-9):.1f}x" if tp is not None else \
+                "the runtime's bytes"
+            log(f"host {name}: {n} calls, {1e3 * tn / n:.4f} ms/call C++, "
+                f"{ref} (host CPU, beside {smi})")
+
+
+def _arrays_equal(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _cols_equal(a, b):
+    return a.data.tobytes() == b.data.tobytes() and \
+        np.array_equal(a.offsets, b.offsets)
+
+
+def _fastq_streams(path):
+    """A cfg3 FASTQ's names, SEQ and QUAL, each as one stream."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    return [b"\n".join(lines[k::4]) for k in (0, 1, 3)]
+
+
+def _host_codecs(ht, rng, streams, scalar):
+    """The codecs' host functions on HOST_PAYLOADS payloads under the
+    device threshold drawn from cfg3's streams: names (RANS1, ARITH1), SEQ
+    (ACGT, RANS0) and QUAL (RANS0/1, PACK, ARITH0/1); rANS also through the
+    scalar coder (`scalar`, a NO_AVX512 build); then ARITH0/1 of names and
+    QUAL at HOST_ARITH_LARGE."""
+    from genozip_tpu_torch import native
+    from genozip_tpu_torch.ops import arith_np, pack, rans_np
+    for i, n in enumerate(HOST_ARITH_LARGE):
+        src = streams[0 if i % 2 else 2]
+        at = int(rng.integers(0, max(1, len(src) - n)))
+        d = src[at:at + n]
+        for o in (0, 1):
+            ab = ht.both(f"arith_encode o{o} (64 KiB-1 MiB)",
+                         lambda: native.arith_encode(d, o),
+                         lambda: arith_np.encode(d, order=o))
+            ht.both(f"arith_decode o{o} (64 KiB-1 MiB)",
+                    lambda: native.arith_decode(ab),
+                    lambda: arith_np.decode(ab))
+    for i in range(HOST_PAYLOADS):
+        kind = i % 3
+        src = streams[kind]
+        n = int(np.exp(rng.uniform(np.log(64), np.log(HOST_MAX_PAYLOAD))))
+        at = int(rng.integers(0, max(1, len(src) - n)))
+        d = src[at:at + n]
+        a = np.frombuffer(d, np.uint8)
+        orders = (1,) if kind == 0 else ((0,) if kind == 1 else (0, 1))
+        for o in orders:
+            blob = ht.both(f"rans_encode o{o}",
+                           lambda: native.rans_encode(d, o),
+                           lambda: rans_np.encode(d, order=o))
+            ht.scalar(f"rans_encode o{o} scalar",
+                      lambda: native.rans_encode(d, o, so=scalar), blob)
+            ht.both(f"rans_decode o{o}", lambda: native.rans_decode(blob),
+                    lambda: rans_np.decode(blob))
+            ht.scalar(f"rans_decode o{o} scalar",
+                      lambda: native.rans_decode(blob, so=scalar), d)
+            if n <= HOST_ARITH_MAX and (kind != 1) and i % 2 == 0:
+                ab = ht.both(f"arith_encode o{o}",
+                             lambda: native.arith_encode(d, o),
+                             lambda: arith_np.encode(d, order=o))
+                ht.both(f"arith_decode o{o}", lambda: native.arith_decode(ab),
+                        lambda: arith_np.decode(ab))
+        hist = ht.both("byte_hist", lambda: native.byte_hist(a),
+                       lambda: np.bincount(a, minlength=256),
+                       np.array_equal)
+        if kind == 1:
+            pk = ht.both("acgt_pack", lambda: native.acgt_pack(a),
+                         lambda: pack.seq_pack_2bit(a), _arrays_equal)
+            ht.both("acgt_unpack",
+                    lambda: native.acgt_unpack(pk[0], n, pk[1], pk[2]),
+                    lambda: pack.seq_unpack_2bit(pk[0], n, pk[1], pk[2]),
+                    np.array_equal)
+        syms = np.nonzero(hist)[0].astype(np.uint8)
+        if kind == 2 and syms.shape[0] <= 16:
+            width = 1 if syms.shape[0] <= 2 else (
+                2 if syms.shape[0] <= 4 else 4)
+            lut = np.zeros(256, np.uint8)
+            lut[syms] = np.arange(syms.shape[0])
+            packed = ht.both("pack_lut",
+                             lambda: native.pack_lut(a, lut, width),
+                             lambda: pack.pack_np(lut[a], width),
+                             np.array_equal)
+            ht.both("unpack_lut",
+                    lambda: native.unpack_lut(packed, n, width, syms),
+                    lambda: syms[pack.unpack_np(packed, width, n)],
+                    np.array_equal)
+
+
+def _bam_records(bam):
+    """The alignment records of a BGZF BAM, decompressed, after its header
+    and reference list."""
+    import gzip
+    with open(bam, "rb") as f:
+        raw = gzip.decompress(f.read())
+    l_text = int.from_bytes(raw[4:8], "little")
+    off = 12 + l_text
+    for _ in range(int.from_bytes(raw[8 + l_text:12 + l_text], "little")):
+        off += 8 + int.from_bytes(raw[off:off + 4], "little")
+    return np.frombuffer(raw, np.uint8)[off:]
+
+
+def _host_bam(ht, bam):
+    """bam_scan over a cfg5 BAM's records, then the SEQ nibble expansion
+    and its inverse and the tokenizer on its read names."""
+    from genozip_tpu_torch.datatypes.bam import BamDT, bam_scan, bam_scan_np
+    from genozip_tpu_torch.seg import MAX_TOKENS, _tokenize_np, tokenize_col
+    from genozip_tpu_torch.utils import ragged
+    from genozip_tpu_torch.utils.ragged import Col
+    recs = _bam_records(bam)
+    off, consumed = ht.both("bam_scan", lambda: bam_scan(recs, 1 << 24),
+                            lambda: bam_scan_np(recs, 1 << 24),
+                            lambda a, b: np.array_equal(a[0], b[0])
+                            and a[1] == b[1])
+    if consumed != recs.shape[0]:
+        raise SystemExit("host bam_scan: the chain does not end at the end")
+    u8 = lambda k: recs[off + k].astype(np.int64)
+    l_rn = u8(12)
+    n_cig = u8(16) | (u8(17) << 8)
+    l_seq = u8(20) | (u8(21) << 8) | (u8(22) << 16) | (u8(23) << 24)
+    seq_at = off + 36 + l_rn + 4 * n_cig
+    nb = (l_seq + 1) // 2
+    seq = ragged.gather_ranges(recs, seq_at, nb)
+    ascii_, _ok = ht.both("nib_expand", lambda: BamDT()._seq_ascii(seq, l_seq),
+                          lambda: BamDT._seq_ascii_np(seq, l_seq),
+                          lambda a, b: _cols_equal(a[0], b[0])
+                          and np.array_equal(a[1], b[1]))
+    ht.both("renibble", lambda: BamDT._renibble(ascii_),
+            lambda: BamDT._renibble_np(ascii_), _cols_equal)
+    names = ragged.gather_ranges(recs, off + 36, l_rn - 1)
+    ht.both("tokenize", lambda: tokenize_col(names.data, names.offsets,
+                                             MAX_TOKENS),
+            lambda: _tokenize_np(names.data, names.offsets, MAX_TOKENS),
+            _arrays_equal)
+    return recs.shape[0], off.shape[0]
+
+
+def _host_vcf(ht, vcf, vb_bytes):
+    """The VCF helpers on the first `vb_bytes` of a cfg1 VCF (one VB): the
+    per-tag split of the sample cells, the int lists of AD and PL (values,
+    sums, GQ from PL), the cell join and the PBWT of the GT matrix."""
+    from genozip_tpu_torch import native
+    from genozip_tpu_torch.datatypes.vcf import VcfDT
+    from genozip_tpu_torch.ops import pbwt
+    from genozip_tpu_torch.utils import ragged
+    from genozip_tpu_torch.utils.ragged import Col
+    with open(vcf, "rb") as f:
+        text = f.read(vb_bytes)
+    lines = [ln for ln in text[:text.rindex(b"\n")].split(b"\n")
+             if ln and not ln.startswith(b"#")]
+    rows = [ln.split(b"\t") for ln in lines]
+    S = len(rows[0]) - 9
+    tags = rows[0][8].split(b":")
+    cells = Col.from_list([c for r in rows for c in r[9:]])
+    T = len(tags)
+    ncnt, bad, sel_by_t, vals_by_t = ht.both(
+        "split_fields", lambda: VcfDT._cell_fields(cells, T),
+        lambda: VcfDT._cell_fields_np(cells, T),
+        lambda a, b: np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        and all(np.array_equal(a[2][t], b[2][t]) and _cols_equal(a[3][t],
+                                                                b[3][t])
+                for t in b[2]) and sorted(a[2]) == sorted(b[2]))
+    for tag in (b"AD", b"PL"):
+        col = vals_by_t[tags.index(tag)]
+        ht.both("int_list_parse", lambda: VcfDT._comma_ints(col),
+                lambda: VcfDT._comma_ints_np(col),
+                lambda a, b: np.array_equal(a[3], b[3]) and
+                np.array_equal(a[0], b[0][b[3][b[1]]]))
+        for name, fn, ref in (("int_list_stats (sums)", VcfDT._ad_sums,
+                               VcfDT._ad_sums_np),
+                              ("int_list_stats (GQ)", VcfDT._pl_gq,
+                               VcfDT._pl_gq_np)):
+            ht.both(name, lambda: fn(col), lambda: ref(col), _arrays_equal)
+    total = int(ncnt.sum())
+    sub_off = np.concatenate([[0], np.cumsum(ncnt)])
+    subs = ragged.merge_rows(total, [(sub_off[:-1][sel_by_t[t]] + t,
+                                      vals_by_t[t]) for t in sel_by_t])
+    joined = ht.both("join_cells",
+                     lambda: Col(*native.join_cells(subs.data, subs.offsets,
+                                                    ncnt, ord(":"))),
+                     lambda: VcfDT._join_cells_np(subs, sub_off, ncnt,
+                                                  len(cells)), _cols_equal)
+    if joined.data.tobytes() != cells.data.tobytes():
+        raise SystemExit("host join_cells: the cells do not come back")
+    gt = vals_by_t[tags.index(b"GT")]
+    if not (gt.lens == 3).all():
+        raise SystemExit("host pbwt: cfg1's GT cells are not diploid")
+    g = gt.data.reshape(-1, 3)
+    A = np.stack([g[:, 0], g[:, 2]], 1).reshape(len(rows), 2 * S) - ord("0")
+    A = A.astype(np.uint8)
+    Y = ht.both("pbwt_encode", lambda: pbwt.pbwt_encode(A),
+                lambda: pbwt.pbwt_encode_np(A), np.array_equal)
+    ht.both("pbwt_decode", lambda: pbwt.pbwt_decode(Y),
+            lambda: pbwt.pbwt_decode_np(Y), np.array_equal)
+    return len(rows), S
+
+
+def _per_call_us(fn, reps):
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e6 * (time.perf_counter() - t) / reps
+
+
+def _host_thresholds(rng, smi):
+    """Where a ragged call is worth the runtime, through it and in numpy:
+    the whole dedup_col of n short words, the VCF cell join of n subfields
+    into n / 2 cells, and a range copy (a gather) of n rows of 1-16 bytes
+    (VCF cells, SAM fields) and of 150 (SEQ). The port takes the runtime for
+    dedup and the join at every size, and for a copy from
+    ragged.NATIVE_MIN_BYTES bytes."""
+    from genozip_tpu_torch import contexts, native
+    from genozip_tpu_torch.datatypes.vcf import VcfDT
+    from genozip_tpu_torch.utils import ragged
+    from genozip_tpu_torch.utils.ragged import Col
+    for n in (8, 64, 256, 1024, 4096):
+        words = Col.from_list([b"%dM" % int(rng.integers(1, 151))
+                               for _ in range(n)])
+        nsub = np.full(n // 2, 2, np.int64)
+        sub_off = np.concatenate([[0], np.cumsum(nsub)])
+        reps = max(20, 20000 // n)
+        us = lambda fn: f"{_per_call_us(fn, reps):.1f}"
+        join = lambda: Col(*native.join_cells(words.data, words.offsets,
+                                              nsub, ord(":")))
+        join_np = lambda: VcfDT._join_cells_np(words, sub_off, nsub, n // 2)
+        res = [f"dedup_col C++ {us(lambda: contexts.dedup_col(words))} "
+               f"numpy {us(lambda: contexts.dedup_col_np(words))}",
+               f"join of {n // 2} cells C++ {us(join)} numpy {us(join_np)}"]
+        for lo, hi in ((1, 17), (150, 151)):
+            lens = rng.integers(lo, hi, n)
+            data = rng.integers(0, 256, int(lens.sum()) + 64 * n,
+                                dtype=np.uint8)
+            starts = rng.integers(0, 64 * n, n)
+            res.append(
+                f"gather of {int(lens.sum())} bytes C++ "
+                f"{us(lambda: _gather_native(data, starts, lens))} numpy "
+                f"{us(lambda: _gather_np(data, starts, lens))}")
+        log(f"host threshold n={n}: " + ", ".join(res) + f" us/call "
+            f"(NATIVE_MIN_BYTES {ragged.NATIVE_MIN_BYTES}; host CPU, beside "
+            f"{smi})")
+
+
+def _gather_native(data, starts, lens):
+    from genozip_tpu_torch import native
+    off = np.concatenate([[0], np.cumsum(lens)])
+    out = np.empty(int(off[-1]), np.uint8)
+    native.copy_ranges(data, starts, out, off[:-1], lens, packed=True)
+    return out
+
+
+def _gather_np(data, starts, lens):
+    from genozip_tpu_torch.utils import ragged
+    off = np.concatenate([[0], np.cumsum(lens)])
+    total = int(off[-1])
+    src = np.repeat(starts - off[:-1], lens) + ragged.arange(total)
+    return data[src]
+
+
+def phase_host(tmp, smi, bam, vcf, vb_mib=16):
+    """Phase host: the port's C++ host runtime (genozip_tpu_torch/native)
+    on this machine: g++'s version, the build's seconds, the host CPU and
+    whether the AVX-512 rANS cores run; then each function against its
+    numpy version (exact) at a cell's size, with its host ms per call both
+    ways: bam_scan over cfg5's BAM records (and the SEQ nibbles, the read
+    names' tokenizer), the VCF helpers on one cfg1 VB (`vb_mib`) and the
+    PBWT of its GT matrix, the codecs on HOST_PAYLOADS payloads of cfg3's
+    streams under the device threshold (rANS also through a build without
+    the AVX-512 cores) and ARITH up to 1 MiB; the crossover of the ragged
+    calls against numpy. `bam` and `vcf` are written here when no earlier
+    step wrote them."""
+    from genozip_tpu_torch import native, synth
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    with open("/proc/cpuinfo") as f:
+        cpu = next((ln.split(":", 1)[1].strip() for ln in f
+                    if ln.startswith("model name")), "unknown")
+    L = native.lib()
+    log(f"host: {gxx}; built in {native.build_seconds:.2f} s this process "
+        f"(0.00: up to date); CPU {cpu}, {os.cpu_count()} cores; AVX-512 "
+        f"cores compiled {bool(L.gxz_host_avx512_compiled())}, used "
+        f"{native.avx512()}")
+    scalar_so = os.path.join(native.BUILD_DIR, "libgxz_host_noavx512.so")
+    t = native.build(scalar_so, native.CXXFLAGS + native.NO_AVX512)
+    scalar = native.load(scalar_so)
+    log(f"host: the build without the AVX-512 cores in {t:.2f} s")
+    if native.xxh64(b"") != 0xEF46DB3751D8E999:
+        raise SystemExit("host xxh64: not the XXH64 of the empty input")
+    write_input(bam, synth.write_bam, 8 * MIB, seed=5)
+    write_input(vcf, synth.write_vcf, vb_mib * MIB, seed=9)
+    rng = np.random.default_rng(11)
+    ht = HostTimes()
+    nbytes, nrec = _host_bam(ht, bam)
+    log(f"host bam: {nrec} records, {nbytes} bytes of BAM records")
+    nrows, S = _host_vcf(ht, vcf, vb_mib * MIB)
+    log(f"host vcf: one VB of {nrows} rows x {S} samples")
+    fq = os.path.join(tmp, "host_streams.fastq")
+    synth.write_fastq(fq, 16 * MIB, seed=3)
+    _host_codecs(ht, rng, _fastq_streams(fq), scalar)
+    os.remove(fq)
+    ht.report(smi)
+    _host_thresholds(rng, smi)
 
 
 def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False,
@@ -2486,8 +2851,81 @@ def ab_cfg3(parent, change, smi):
         log(f"ab cfg3: archives equal to the first (parent's): {same}")
 
 
-PHASES = ("kernels", "micro", "cfg3", "entry", "cfg4", "parallel", "cfg5",
-          "cfg5x", "cfg1", "tools")
+# --ab-host: the cells profiled per tree, and the turns of each
+AB_HOST_CELLS = ("cfg5", "deep", "cfg1")
+AB_HOST_ORDER = ("parent", "change", "change", "parent")
+AB_HOST_CFG3_MIB = 128
+
+
+def _tree_env(path):
+    return dict(os.environ, PYTHONPATH=os.path.abspath(path))
+
+
+def ab_host(parent, change):
+    """End to end on the host, for two checkouts: scripts/profile_cell.py
+    (as it is in each tree) on each cell of AB_HOST_CELLS, then `zip` and
+    `unzip --show-time` of a cfg3 FASTQ of AB_HOST_CFG3_MIB through each tree's
+    CLI (`--device cuda`, a fresh interpreter each), in the turns of
+    AB_HOST_ORDER. A tree's host runtime is built before its first turn
+    (where it has one), so no turn times g++. Prints each run's lines and
+    the zip and unzip MB/s of each turn."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    for path in (parent, change):
+        if os.path.exists(os.path.join(path, "genozip_tpu_torch", "native")):
+            subprocess.run([sys.executable, "-c", "from genozip_tpu_torch "
+                            "import native; native.lib()"], cwd=path,
+                           env=_tree_env(path), check=True)
+            log(f"ab-host: {path}'s host runtime built")
+    for cell in AB_HOST_CELLS:
+        for i, who in enumerate(AB_HOST_ORDER):
+            path = parent if who == "parent" else change
+            t = time.time()
+            res = subprocess.run(
+                [sys.executable, "scripts/profile_cell.py", "--cell", cell],
+                cwd=path, env=_tree_env(path), capture_output=True, text=True)
+            if res.returncode != 0:
+                raise SystemExit(f"ab-host {cell} {who} failed:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+            for line in res.stdout.splitlines():
+                log(f"abh {cell} {i} {who}: {line}")
+            log(f"abh {cell} {i} {who}: {time.time() - t:.1f} s in all")
+    from genozip_tpu_torch import synth
+    with tempfile.TemporaryDirectory(prefix="gxz_abh_") as tmp:
+        fq = os.path.join(tmp, "cfg3.fastq")
+        size = synth.write_fastq(fq, AB_HOST_CFG3_MIB * MIB, seed=3)
+        for i, who in enumerate(AB_HOST_ORDER):
+            path = parent if who == "parent" else change
+            z, out = os.path.join(tmp, f"{i}.gxz"), os.path.join(tmp, "out")
+            for cmd, argv in (("zip", ["zip", fq, "-o", z, "-q"]),
+                              ("unzip", ["unzip", z, "-o", out])):
+                t = time.time()
+                res = subprocess.run(
+                    [sys.executable, "-m", "genozip_tpu_torch"] + argv +
+                    ["--device", "cuda", "--show-time"], cwd=path,
+                    env=_tree_env(path), capture_output=True, text=True)
+                wall = time.time() - t
+                if res.returncode != 0:
+                    raise SystemExit(f"ab-host cfg3 {cmd} {who} failed:\n"
+                                     f"{res.stderr[-3000:]}")
+                log(f"abh cfg3 {i} {who} {cmd}: {wall:.2f} s, "
+                    f"{size / 1e6 / wall:.3f} MB/s ({size} bytes, fresh "
+                    f"interpreter) on {smi}")
+                for line in (res.stdout + res.stderr).splitlines():
+                    log(f"abh cfg3 {i} {who} {cmd}: {line}")
+            if not same_file(fq, out):
+                raise SystemExit(f"ab-host cfg3 {who}: unzip output differs")
+            if not same_file(z, os.path.join(tmp, "0.gxz")):
+                raise SystemExit(f"ab-host cfg3 {who}: the archive differs "
+                                 f"from the parent's")
+            os.remove(out)
+    return 0
+
+
+PHASES = ("kernels", "micro", "host", "cfg3", "entry", "cfg4", "parallel",
+          "cfg5", "cfg5x", "cfg1", "tools")
 
 
 def main(argv=None):
@@ -2495,6 +2933,11 @@ def main(argv=None):
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ", ".join(PHASES) +
                     " (default: all, and only then the result lines)")
+    ap.add_argument("--ab-host", nargs=2, metavar=("PARENT", "CHANGE"),
+                    help="scripts/profile_cell.py on cfg5, deep and cfg1, "
+                         "then cfg3 zip and unzip --show-time, from two "
+                         "checkouts in the turns parent, change, change, "
+                         "parent, and stop")
     ap.add_argument("--ab", nargs=2, metavar=("PARENT", "CHANGE"),
                     help="time the kernels of two checkouts in turns "
                          "(parent, change, change, parent), then cfg3 zip "
@@ -2506,6 +2949,8 @@ def main(argv=None):
         return 2
     if args.ab:
         return ab_kernels(*args.ab)
+    if args.ab_host:
+        return ab_host(*args.ab_host)
     phases = [x for x in args.phases.split(",") if x]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -2541,6 +2986,10 @@ def main(argv=None):
     rans_cuda.lib()
     aes_cuda.lib()
     align_cuda.lib()
+    from genozip_tpu_torch import native
+    native.lib()
+    log(f"setup: host runtime (genozip_tpu_torch/native) built by g++ in "
+        f"{native.build_seconds:.2f} s")
 
     rng = np.random.default_rng(2024)
     meas, counts3, counts4, counts5, counts8 = {}, None, None, None, None
@@ -2559,6 +3008,9 @@ def main(argv=None):
         t = time.time()
         inputs.wait()
         log(f"inputs of phases 7-9 ready; waited {time.time() - t:.1f} s")
+        if "host" in phases:
+            timed("host", phase_host, tmp, smi,
+                  os.path.join(tmp, "cfg5.bam"), os.path.join(tmp, "cfg1.vcf"))
         if "cfg3" in phases:                            # 3 and 4
             counts3, rates3, fq3 = timed("cfg3", phase_cfg3, tmp, smi, 128,
                                          32, "tools" in phases or par, par)

@@ -3,8 +3,10 @@
 Counterpart of genozip_tpu/codecs/__init__.py (codec ids, payload layouts and
 bytes are the same). rANS payloads of `min_size` bytes or more go to the
 kernels of `ops.rans_cuda` on the device set by `enable_device_rans`; smaller
-ones, and all of them while no device is set, go to the host coder
-`ops.rans_np`. Every stream takes
+ones, and all of them while no device is set, go to the host coder of the
+C++ host runtime (`native.rans_encode`, whose bytes are `ops.rans_np`'s).
+ARITH, PACK and ACGT and the byte histogram also run there, as in
+genozip_tpu with its native runtime. Every stream takes
 `rans_np.choose_num_lanes(n)` lanes and is never padded, so the device route
 writes the same bytes as the host route. A failure of the device route raises
 `DeviceKernelError`; nothing falls back to the host coder.
@@ -20,8 +22,7 @@ import zlib as _zlib
 import numpy as np
 import torch
 
-from ..ops import arith_np, rans_np
-from ..ops import pack as packops
+from .. import native
 from ..ops import rans_cuda
 from ..ops.rans_cuda import DeviceKernelError  # noqa: F401  (re-export)
 
@@ -97,18 +98,18 @@ def decompress_many_rans(blobs) -> list:
 def _rans_encode(data: bytes, order: int) -> bytes:
     if _device is not None and len(data) >= _min_size:
         return compress_many_rans([data], order)[0]
-    return rans_np.encode(data, order=order)
+    return native.rans_encode(data, order)
 
 
 def _rans_decode(blob) -> bytes:
     n = int.from_bytes(bytes(blob[2:6]), "little")
     if _device is not None and n >= _min_size:
         return decompress_many_rans([blob])[0]
-    return rans_np.decode(blob)
+    return native.rans_decode(blob)
 
 
 def _byte_hist(a: np.ndarray) -> np.ndarray:
-    return np.bincount(a, minlength=256)
+    return native.byte_hist(a)
 
 
 def _pack_encode(data: bytes, order: int) -> bytes:
@@ -125,7 +126,7 @@ def _pack_encode(data: bytes, order: int) -> bytes:
         raise ValueError("PACK needs <=16 distinct symbols")
     lut = np.zeros(256, np.uint8)
     lut[syms] = np.arange(ns, dtype=np.uint8)
-    packed = packops.pack_np(lut[a], width)
+    packed = native.pack_lut(a, lut, width)
     sub = _rans_encode(packed.tobytes(), order)
     head = bytes([ns, width]) + len(a).to_bytes(8, "little") + syms.tobytes()
     return head + sub
@@ -137,13 +138,12 @@ def _pack_decode(blob) -> bytes:
     n = int.from_bytes(blob[2:10], "little")
     syms = np.frombuffer(blob[10:10 + ns], np.uint8)
     packed = np.frombuffer(_rans_decode(blob[10 + ns:]), np.uint8)
-    codes = packops.unpack_np(packed, width, n)
-    return syms[codes].tobytes()
+    return native.unpack_lut(packed, n, width, syms).tobytes()
 
 
 def _acgt_encode(data: bytes, packed_lz: bool = False) -> bytes:
     a = np.frombuffer(data, np.uint8)
-    packed, exc_pos, exc_bytes = packops.seq_pack_2bit(a)
+    packed, exc_pos, exc_bytes = native.acgt_pack(a)
     p = _lzma.compress(packed.tobytes(), preset=1) if packed_lz \
         else _rans_encode(packed.tobytes(), 0)
     e_pos = _rans_encode(np.diff(exc_pos, prepend=np.uint32(0)).astype("<u4").tobytes(), 0)
@@ -169,7 +169,7 @@ def _acgt_decode(blob, packed_lz: bool = False) -> bytes:
     exc_bytes = np.frombuffer(_rans_decode(blob[off:]), np.uint8)[:ne]
     if exc_pos.shape[0] != ne:
         raise ValueError("ACGT exception channel length mismatch")
-    return packops.seq_unpack_2bit(packed, n, exc_pos, exc_bytes).tobytes()
+    return native.acgt_unpack(packed, n, exc_pos, exc_bytes).tobytes()
 
 
 def _delta_encode(data: bytes) -> bytes:
@@ -293,9 +293,9 @@ def compress(data: bytes, codec: int) -> bytes:
     if codec == STRIPE4:
         return _stripe4_encode(data)
     if codec == ARITH0:
-        return arith_np.encode(data, order=0)
+        return native.arith_encode(data, 0)
     if codec == ARITH1:
-        return arith_np.encode(data, order=1)
+        return native.arith_encode(data, 1)
     if codec == BWT:
         from . import bwt
         return bwt.compress(bytes(data), ARITH1)
@@ -328,7 +328,7 @@ def decompress(blob, codec: int, uncomp_len: int) -> bytes:
     elif codec == STRIPE4:
         out = _stripe4_decode(blob)
     elif codec in (ARITH0, ARITH1):
-        out = arith_np.decode(blob)
+        out = native.arith_decode(blob)
     elif codec == BWT:
         from . import bwt
         out = bwt.decompress(blob)

@@ -5,8 +5,9 @@ Counterpart of genozip_tpu/codecs/bwt.py, with its framing and bytes.
 Forward: the suffix array by prefix doubling (np.lexsort, O(n log^2 n)),
 the BWT from the suffix array of the sentinel-terminated block. Inverse:
 the LF mapping by counting, then the walk of its one cycle from the
-sentinel's row. genozip_tpu walks it one step at a time in Python (or in
-its native runtime); here the walk is vectorized (`_walk`): walkers start
+sentinel's row, one step a byte in the C++ host runtime
+(`native.perm_walk`), as genozip_tpu walks it with its native runtime.
+`bwt_inverse_np` vectorizes the walk in numpy (`_walk`): walkers start
 together from sampled rows, each follows the cycle to the next sampled
 row, and the segments are then put in cycle order. The text is unique, so
 the bytes are genozip_tpu's.
@@ -16,6 +17,8 @@ sections).
 """
 
 import numpy as np
+
+from .. import native
 
 # the prefix-doubling SA is O(n log^2 n) lexsorts: big payloads split into
 # independent blocks. Multi-block blobs carry a sentinel first word;
@@ -125,6 +128,17 @@ def bwt_inverse(last: np.ndarray, prim: int) -> np.ndarray:
     n = last.shape[0]
     if n == 0:
         return np.empty(0, np.uint8)
+    if not 0 <= prim <= n:
+        raise ValueError("BWT primary index outside the block")
+    lf, li = _lf(last, prim)
+    return native.perm_walk(lf, li, prim, n)
+
+
+def bwt_inverse_np(last: np.ndarray, prim: int) -> np.ndarray:
+    """bwt_inverse with the walk vectorized in numpy (`_walk`)."""
+    n = last.shape[0]
+    if n == 0:
+        return np.empty(0, np.uint8)
     lf, li = _lf(last, prim)
     rows = np.arange(n + 1)
     # the walk i_{k+1} = lf[i_k] from i_0 = prim emits out[n-1-k] =
@@ -216,7 +230,9 @@ if __name__ == "__main__":
     t = time.time()
     last, prim = bwt_forward(block)
     times = {"forward": time.time() - t}
-    for name, fn in (("walk", bwt_inverse), ("step loop", _step_loop)):
+    for name, fn in (("host runtime walk", bwt_inverse),
+                     ("numpy walk", bwt_inverse_np),
+                     ("step loop", _step_loop)):
         t = time.time()
         if fn(last, prim).tobytes() != block.tobytes():
             raise SystemExit(f"{name}: not the input")

@@ -30,6 +30,7 @@ Channel classes (each names the reference codec whose role it fills):
 
 import numpy as np
 
+from .. import native
 from ..utils import ragged
 from ..utils.ragged import Col
 
@@ -191,7 +192,18 @@ def orient(col: Col, rev: np.ndarray, comp: bool = False) -> Col:
     """Reverse (and optionally base-complement) the rows where rev is True —
     the NORMQ role (src/codec_normq.c): restore machine orientation of
     revcomped SAM reads so cycle/context channels line up across strands.
-    Involutive: orient(orient(x, m), m) == x."""
+    Involutive: orient(orient(x, m), m) == x. The host runtime reverses the
+    rows in place in a copy (`orient_np` is the numpy version)."""
+    if not rev.any():
+        return Col(col.data.copy() if comp else col.data, col.offsets)
+    data = col.data.copy()
+    native.reverse_rows(data, col.offsets, np.nonzero(rev)[0],
+                        _COMP if comp else None)
+    return Col(data, col.offsets)
+
+
+def orient_np(col: Col, rev: np.ndarray, comp: bool = False) -> Col:
+    """orient in numpy: flat index math over the reversed rows' bytes."""
     if not rev.any():
         return Col(col.data.copy() if comp else col.data, col.offsets)
     total = col.data.shape[0]

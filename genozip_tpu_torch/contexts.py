@@ -13,6 +13,7 @@ instead of base-250 varints.
 
 import numpy as np
 
+from . import native
 from .codecs import assign as codec_assign
 from .utils import ragged
 from .utils.ragged import Col
@@ -50,8 +51,25 @@ class VBCtx:
 
 def dedup_col(col: Col):
     """Vectorized ragged dedup: returns (unique Col in first-seen order,
-    inverse int64[n]): a pad+hash-fold matrix for rows up to 96 bytes, a
-    python dict for wider rows."""
+    inverse int64[n]): the host runtime's 64-bit row hashes, np.unique and
+    a check of every row against its representative; on a collision,
+    `dedup_col_np` (the exact path)."""
+    h = native.row_hash(col.data, col.offsets)
+    _, first_idx, inverse = np.unique(h, return_index=True,
+                                      return_inverse=True)
+    inverse = inverse.reshape(-1)
+    if not native.rows_equal_rep(col.data, col.offsets, first_idx[inverse]):
+        return dedup_col_np(col)
+    order = np.argsort(first_idx, kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.shape[0])
+    return ragged.take(col, first_idx[order]), \
+        rank[inverse].astype(np.int64)
+
+
+def dedup_col_np(col: Col):
+    """dedup_col in numpy: a pad+hash-fold matrix for rows up to 96 bytes,
+    a python dict for wider rows."""
     n = len(col)
     if n == 0:
         return Col.from_list([]), np.zeros(0, np.int64)
@@ -110,12 +128,9 @@ def dedup_col(col: Col):
 
 
 def _col_hashes(col: Col) -> np.ndarray:
-    """64-bit row hashes, for dict membership only (any fixed hash serves)."""
-    n = len(col)
-    h = np.zeros(n, np.uint64)
-    for i in range(n):
-        h[i] = np.uint64(hash(col.row(i)) & 0xFFFFFFFFFFFFFFFF)
-    return h
+    """64-bit row hashes, for dict membership only (any fixed hash serves):
+    the host runtime's."""
+    return native.row_hash(col.data, col.offsets)
 
 
 class ZCtxGlobal:

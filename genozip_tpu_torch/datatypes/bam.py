@@ -5,8 +5,10 @@ BAM stream, like the reference's digest over txt data).
 Counterpart of genozip_tpu/datatypes/bam.py on its numpy host path.
 Reference parity: src/bam_seg.c (record parsing), src/sam.h record layout,
 src/bam_seq.c (4-bit SEQ codes). `bam_scan` walks the serial block_size
-chain in Python; all field extraction is then vectorized numpy over record
-offsets — no per-record python. Alignment-record layout (SAMv1 spec §4.2):
+chain in the C++ host runtime (`native.bam_scan`; `bam_scan_np` is the
+Python loop), as do the 4-bit SEQ expansion and its inverse; all field
+extraction is then vectorized numpy over record offsets — no per-record
+python. Alignment-record layout (SAMv1 spec §4.2):
   u32 block_size; i32 refID, pos; u8 l_read_name, mapq; u16 bin, n_cigar_op,
   flag; u32 l_seq; i32 next_refID, next_pos, tlen; char read_name[l_rn];
   u32 cigar[n_cigar]; u8 seq[(l_seq+1)/2]; u8 qual[l_seq]; aux...
@@ -17,6 +19,7 @@ import struct
 import numpy as np
 
 from . import DataType, VBSegResult, register
+from .. import native
 from . import sam_tags
 from .sam import SamDT
 from ..utils import ragged
@@ -49,8 +52,13 @@ def _i32(data, off):
 
 def bam_scan(data: np.ndarray, max_records: int):
     """Walk the serial BAM block_size chain -> (record offsets, bytes
-    consumed by whole records). The same offsets as genozip_tpu's
-    native.bam_scan (its Python fallback, native/__init__.py:550-564)."""
+    consumed by whole records), in the host runtime."""
+    return native.bam_scan(data, max_records)
+
+
+def bam_scan_np(data: np.ndarray, max_records: int):
+    """bam_scan as a Python loop (genozip_tpu's fallback,
+    native/__init__.py:550-564)."""
     buf = np.ascontiguousarray(data).tobytes()
     length = len(buf)
     offs = []
@@ -140,6 +148,13 @@ class BamDT(SamDT):
     def _seq_ascii(self, seq_nib: Col, l_seq: np.ndarray):
         """4-bit codes -> ASCII letters + per-row nibble-exactness (odd-length
         rows whose pad nibble isn't 0 can't round-trip through ASCII)."""
+        data, off, ok = native.nib_expand(seq_nib.data, seq_nib.offsets,
+                                          l_seq)
+        return Col(data, off), ok
+
+    @staticmethod
+    def _seq_ascii_np(seq_nib: Col, l_seq: np.ndarray):
+        """_seq_ascii in numpy."""
         # single-gather expansion: byte -> two ASCII letters as one uint16
         global _NIB16
         if _NIB16 is None:
@@ -619,6 +634,15 @@ class BamDT(SamDT):
 
     @staticmethod
     def _renibble(ascii_col: Col) -> Col:
+        """ASCII SEQ rows -> 4-bit rows (2-aligned, high nibble first)."""
+        out_off = np.concatenate([[0], np.cumsum((ascii_col.lens + 1) // 2)])
+        nibbles = native.renibble(ascii_col.data, ascii_col.offsets, NIB_OF,
+                                  out_off)
+        return Col(nibbles, out_off)
+
+    @staticmethod
+    def _renibble_np(ascii_col: Col) -> Col:
+        """_renibble in numpy."""
         lens = ascii_col.lens
         nb = (lens + 1) // 2
         padded = np.zeros(ascii_col.data.shape[0] + len(ascii_col), np.uint8)

@@ -28,6 +28,7 @@ from ..contexts import VBCtx, MODE_DICT, MODE_NUM, MODE_TXT, dedup_col
 from ..ops import pack as packops
 from ..ref import aligner as al
 from ..seg import tokenizer_seg_col, tokenizer_recon_col
+from .. import native
 from ..utils import profiler, ragged
 
 
@@ -96,6 +97,11 @@ class FastqDT(DataType):
     def vb_boundary(self, data: np.ndarray, is_eof: bool) -> int:
         if is_eof:
             return data.shape[0]
+        return native.stride_boundary(data, 4)
+
+    @staticmethod
+    def vb_boundary_np(data: np.ndarray) -> int:
+        """vb_boundary before EOF, in numpy: after the last whole record."""
         nl = np.nonzero(data == ord("\n"))[0]
         quads = nl.shape[0] // 4
         if quads == 0:

@@ -17,6 +17,7 @@ import numpy as np
 
 from . import register
 from .tabular import TabularDT
+from .. import native
 from ..utils import ragged
 from ..utils.ragged import Col
 from ..contexts import VBCtx, MODE_DICT, MODE_NUM, dedup_col
@@ -100,7 +101,10 @@ class GffDT(TabularDT):
         cum = np.cumsum(intra) - intra
         dst = toff[:-1][pair_row] + (cum - cum[first_of][pair_row])
         tot = int(keys.lens.sum())
-        if tot:
+        if tot >= ragged.NATIVE_MIN_BYTES:
+            native.copy_ranges(keys.data, keys.offsets[:-1], tdata, dst,
+                               keys.lens)
+        elif tot:
             pos = ragged.arange(tot) - np.repeat(keys.offsets[:-1], keys.lens)
             tdata[np.repeat(dst, keys.lens) + pos] = keys.data
         tdata[(dst + klen)[has_eq]] = TOK_MARK

@@ -14,6 +14,7 @@ binary parsing lives in datatypes/bam.py.
 import numpy as np
 
 from . import DataType, VBSegResult, register
+from .. import native
 from ..utils import ragged
 from ..utils.ragged import Col
 from ..contexts import VBCtx, MODE_DICT, MODE_NUM, MODE_TXT, dedup_col
@@ -271,6 +272,16 @@ class SamDT(DataType):
         rows = np.nonzero(elig)[0]
         if rows.shape[0] == 0:
             return
+        # one pass in the host runtime (`_populate_rows_np` in numpy)
+        native.ref_populate(seq.data, seq.offsets, rows, start_all[rows],
+                            packops.BASE2BIT, ref.codes, ref.is_set,
+                            ref.blk_set, self._POP_BLK,
+                            getattr(ref, "read_unset", None))
+
+    def _populate_rows_np(self, seq, rows, start_all, ref):
+        """The scatter of _populate_internal_ref in numpy: reads `rows`,
+        starting at genome position start_all[rows]."""
+        from ..ops import pack as packops
         it = np.int32 if ref.length < (1 << 31) else np.int64
         sub = ragged.take(seq, rows)
         start = start_all[rows].astype(it)
@@ -284,9 +295,9 @@ class SamDT(DataType):
         if getattr(ref, "read_unset", None) is not None:
             sel &= ~ref.read_unset[gp]
         gsel = gp[sel]
-        # duplicate positions within the batch: any winner is fine — the
-        # diffs below read the SETTLED array, and the stored genome is
-        # written after all diffs, so ZIP/PIZ always agree byte-for-byte
+        # duplicate positions within the batch: the last read wins (the
+        # stored genome carries it, so native.ref_populate does the same);
+        # the diffs read the settled array, so ZIP and PIZ agree
         ref.codes[gsel] = codes[sel]
         ref.is_set[gsel] = True
         # exact per-block recount of the touched blocks (saturation gate)
@@ -703,6 +714,37 @@ class SamDT(DataType):
                   & (gpos0 >= 0) & (gpos0 + fo["ref_len"] <= G))
         if getattr(ref, "track_used", False):
             ref.mark_used(gpos0[by_ref], fo["ref_len"][by_ref])
+        internal = getattr(ref, "internal", False) and by_ref.any()
+        if internal and getattr(ref, "read_unset", None) is None:
+            ref.read_unset = np.zeros(G, bool)
+        # one pass in the host runtime (`_seq_diff_np` in numpy); for
+        # REF_INTERNAL it marks the bases diffed while unset (fault F11)
+        ins_sel = self._INS_LUT[fo["letters"]] & by_ref[fo["oprow"]]
+        nonref_cap = int(seq_lens[~by_ref].sum()
+                         + fo["oplen"][ins_sel].sum())
+        mr, mp, mb, nonref = native.seq_diff(
+            seq.data, seq.offsets, by_ref, gpos0, fo["letters"], fo["oplen"],
+            fo["oprow"], fo["roff"], fo["goff"], ref.codes, self._MATCH_LUT,
+            self._INS_LUT, packops.BASE2BIT, packops.IS_ACGT, nonref_cap,
+            is_set=ref.is_set if internal else None,
+            read_unset=ref.read_unset if internal else None)
+        nm = np.bincount(mr, minlength=n)[by_ref]
+
+        ctxs["SQBITMAP"] = VBCtx("SQBITMAP", MODE_NUM,
+                                 local=by_ref.astype(np.int64), cat="int")
+        ctxs["SEQNM"] = VBCtx("SEQNM", MODE_NUM, local=nm, cat="int")
+        ctxs["SEQMISP"] = VBCtx("SEQMISP", MODE_NUM,
+                                local=mp.astype(np.int64), cat="int")
+        ctxs["SEQMISB"] = VBCtx("SEQMISB", MODE_TXT, local=mb, cat="text")
+        ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=nonref, cat="seq")
+
+    def _seq_diff_np(self, seq, by_ref, gpos0, fo, ref):
+        """The diff of _seg_seq_vs_ref in numpy -> (mismatch rows,
+        positions, bases, NONREF bytes); marks ref.read_unset as the host
+        runtime does."""
+        from ..ops import pack as packops
+        n = len(seq)
+        G = ref.length
         if by_ref.any():
             sel = self._MATCH_LUT[fo["letters"]] & by_ref[fo["oprow"]]
             opid, within = self._expand_ops(sel, fo["oplen"])
@@ -727,18 +769,8 @@ class SamDT(DataType):
             mr = np.zeros(0, np.int64)
             mp = np.zeros(0, np.int64)
             mb = np.zeros(0, np.uint8)
-        nm = np.bincount(mr, minlength=n)[by_ref]
-
-        ctxs["SQBITMAP"] = VBCtx("SQBITMAP", MODE_NUM,
-                                 local=by_ref.astype(np.int64), cat="int")
-        ctxs["SEQNM"] = VBCtx("SEQNM", MODE_NUM, local=nm, cat="int")
-        ctxs["SEQMISP"] = VBCtx("SEQMISP", MODE_NUM, local=mp, cat="int")
-        ctxs["SEQMISB"] = VBCtx("SEQMISB", MODE_TXT, local=mb, cat="text")
-
         # NONREF: whole seq for non-by-ref rows; I/S segments for by-ref rows
-        nonref_parts = self._nonref_stream(seq, by_ref, n, fo)
-        ctxs["NONREF"] = VBCtx("NONREF", MODE_TXT, local=nonref_parts,
-                               cat="seq")
+        return mr, mp, mb, self._nonref_stream(seq, by_ref, n, fo)
 
     def _nonref_stream(self, seq, by_ref, n, fo):
         """Row-order NONREF bytes: full seq (non-by-ref rows) or I/S segments
@@ -1651,7 +1683,6 @@ class SamDT(DataType):
         mp = pctxs["SEQMISP"].nums()
         mb = pctxs["SEQMISB"].local
         nonref = pctxs["NONREF"].local
-        G = ref.length
 
         # flat op table (same pass the ZIP side used; by_ref rows are
         # guaranteed structurally valid)
@@ -1667,6 +1698,26 @@ class SamDT(DataType):
         assert nr_off[-1] == nonref.shape[0], "NONREF stream length mismatch"
 
         out_off = np.concatenate([[0], np.cumsum(lens.astype(np.int64))])
+        # one pass in the host runtime (`_seq_recon_np` in numpy)
+        ins_before = self._seg_excl_cumsum(
+            oplen * self._INS_LUT[letters], oprow, n)
+        out = native.seq_recon(out_off, by_ref, gpos0, letters, oplen, oprow,
+                               fo["roff"], fo["goff"], ins_before, ref.codes,
+                               packops.ACGT, self._MATCH_LUT, self._INS_LUT,
+                               nonref, nr_off)
+        # apply all mismatch patches at once (row-major order by build)
+        mm_row_of = np.repeat(np.nonzero(by_ref)[0], nm)
+        out[out_off[:-1][mm_row_of] + mp] = mb
+        return Col(out, out_off)
+
+    def _seq_recon_np(self, fo, by_ref, lens, gpos0, out_off, nonref,
+                      nr_off, ref):
+        """The rebuild of _recon_seq_vs_ref before its mismatch patches, in
+        numpy."""
+        from ..ops import pack as packops
+        G = ref.length
+        letters, oplen, oprow = fo["letters"], fo["oplen"], fo["oprow"]
+        n = by_ref.shape[0]
         out = np.zeros(int(out_off[-1]), dtype=np.uint8)
 
         # non-by-ref rows: one flat copy
@@ -1698,11 +1749,7 @@ class SamDT(DataType):
             dst = out_off[:-1][rows_i] + fo["roff"][opid] + within
             src = nr_off[rows_i] + ins_before[opid] + within
             out[dst] = nonref[src]
-
-        # apply all mismatch patches at once (row-major order by build)
-        mm_row_of = np.repeat(np.nonzero(by_ref)[0], nm)
-        out[out_off[:-1][mm_row_of] + mp] = mb
-        return Col(out, out_off)
+        return out
 
     def recon_vb(self, pctxs: dict, meta: dict) -> bytes:
         n = meta["num_lines"]

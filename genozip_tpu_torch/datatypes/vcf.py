@@ -16,6 +16,7 @@ from the VB's dominant shape round-trip via a verbatim exception context.
 import numpy as np
 
 from . import DataType, VBSegResult, register
+from .. import native
 from ..contexts import (VBCtx, MODE_DICT, MODE_NUM, dedup_col,
                         est_ctxs_size)
 from ..ops.pbwt import pbwt_decode, pbwt_encode
@@ -669,11 +670,25 @@ class VcfDT(DataType):
 
     @staticmethod
     def _comma_ints(col):
-        """Parse each row as a comma-separated int list (one tokenizer
-        scan — no per-segment index math). Returns (flat_vals, seg_row,
-        vals_per_row, ok_row); ok_row marks rows whose template is exactly
-        int(,int)* — only their values are meaningful, and for them
-        vals_per_row equals the comma count + 1."""
+        """Parse each row as a comma-separated int list in the host runtime
+        (`native.int_list_parse`). Returns (flat_vals, seg_row,
+        vals_per_row, ok_row); ok_row marks rows that are exactly
+        int(,int)* with canonical items — only their values are in
+        flat_vals, and vals_per_row is 0 elsewhere. A 0x01 byte anywhere
+        fails every row, as in `_comma_ints_np`."""
+        from ..seg import TOK_MARK
+        n = len(col)
+        if col.data.shape[0] and (col.data == TOK_MARK).any():
+            return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                    np.zeros(n, np.int64), np.zeros(n, bool))
+        vals, nv, ok = native.int_list_parse(col.data, col.offsets)
+        return vals, np.repeat(ragged.arange(n), nv), nv, ok
+
+    @staticmethod
+    def _comma_ints_np(col):
+        """_comma_ints in numpy (one tokenizer scan): vals and seg_row also
+        hold the kept tokens of the rows that fail, and vals_per_row counts
+        them."""
         from ..seg import tokenize_col, TOK_MARK
         n = len(col)
         if col.data.shape[0] and (col.data == TOK_MARK).any():
@@ -712,11 +727,29 @@ class VcfDT(DataType):
         f_of = np.repeat(ragged.arange(n), kept)
         return vals, f_of, kept, ok_row
 
+    @staticmethod
+    def _int_list_stats(col):
+        """native.int_list_stats of the rows; every row fails where the
+        column holds a 0x01 byte, as in `_comma_ints_np`."""
+        from ..seg import TOK_MARK
+        if col.data.shape[0] and (col.data == TOK_MARK).any():
+            n = len(col)
+            big = np.full(n, np.iinfo(np.int64).max)
+            return (np.zeros(n, np.int64), big, big.copy(),
+                    np.zeros(n, np.int32), np.zeros(n, bool))
+        return native.int_list_stats(col.data, col.offsets)
+
     @classmethod
     def _ad_sums(cls, col):
         """Per-row sum of a comma-int list (AD); pred for DP
         (reference src/vcf_gatk.c: DP == sum of AD in GATK output)."""
-        vals, f_of, _nseg, ok = cls._comma_ints(col)
+        sums, _m1, _m2, _nv, ok = cls._int_list_stats(col)
+        return sums, ok
+
+    @classmethod
+    def _ad_sums_np(cls, col):
+        """_ad_sums in numpy."""
+        vals, f_of, _nseg, ok = cls._comma_ints_np(col)
         sums = np.bincount(f_of, weights=np.where(ok[f_of], vals, 0),
                            minlength=len(col)).astype(np.int64)
         return np.where(ok, sums, 0), ok
@@ -724,10 +757,16 @@ class VcfDT(DataType):
     @classmethod
     def _pl_gq(cls, col):
         """GATK GQ prediction: second-lowest PL minus lowest, capped at 99
-        (reference src/vcf_gatk.c GQ-from-PL). Per-row mins via reduceat —
-        no global sort."""
+        (reference src/vcf_gatk.c GQ-from-PL)."""
+        _s, m1, m2, nv, ok = cls._int_list_stats(col)
+        ok = ok & (nv >= 2)
+        return np.where(ok, np.minimum(m2 - m1, 99), 0), ok
+
+    @classmethod
+    def _pl_gq_np(cls, col):
+        """_pl_gq in numpy: per-row mins via reduceat, no global sort."""
         n = len(col)
-        vals, f_of, nseg, ok = cls._comma_ints(col)
+        vals, f_of, nseg, ok = cls._comma_ints_np(col)
         ok &= nseg >= 2
         pred = np.zeros(n, np.int64)
         if vals.shape[0] == 0 or not ok.any():
@@ -815,6 +854,52 @@ class VcfDT(DataType):
                                (np.nonzero(~okb)[0], exc)])
         return col
 
+    @staticmethod
+    def _cell_fields(cells, T):
+        """Split each sample cell on ':' into its FORMAT fields, in one pass
+        of the host runtime -> (fields per cell, 0 where the cell is empty
+        or has more than T; those cells' mask; {t: the cells with a field
+        t}; {t: their field t})."""
+        f_start, f_len, nf = native.split_fields(cells.data, cells.offsets,
+                                                 ord(":"), T)
+        ncnt = nf.astype(np.int64)
+        bad = (ncnt > T) | (cells.lens == 0)
+        ncnt = np.where(bad, 0, ncnt)
+        sel_by_t, vals_by_t = {}, {}
+        for t in range(T):
+            sel = np.nonzero(ncnt > t)[0]
+            if sel.shape[0]:
+                sel_by_t[t] = sel
+                vals_by_t[t] = ragged.gather_ranges(
+                    cells.data, f_start[t][sel],
+                    f_len[t][sel].astype(np.int64))
+        return ncnt, bad, sel_by_t, vals_by_t
+
+    @staticmethod
+    def _cell_fields_np(cells, T):
+        """_cell_fields in numpy, from the colon positions."""
+        data = cells.data
+        ncol = ragged.count_sep_per_row_np(cells, ord(":"))
+        ncnt = ncol + 1
+        bad = (ncnt > T) | (cells.lens == 0)
+        ncnt = np.where(bad, 0, ncnt)
+        cp = np.nonzero(data == ord(":"))[0]
+        fc = np.concatenate([[0], np.cumsum(ncol)])  # first colon of cell
+        cpx = np.concatenate([cp, [0]])  # safe index
+        sel_by_t, vals_by_t = {}, {}
+        for t in range(T):
+            sel = np.nonzero(ncnt > t)[0]
+            if sel.shape[0] == 0:
+                continue
+            st = np.where(t == 0, cells.offsets[:-1][sel],
+                          cpx[fc[sel] + t - 1] + 1)
+            en = np.where(ncnt[sel] - 1 == t, cells.offsets[1:][sel],
+                          cpx[np.minimum(fc[sel] + t, cp.shape[0] - 1
+                                         if cp.shape[0] else 0)])
+            vals_by_t[t] = ragged.gather_ranges(data, st, en - st)
+            sel_by_t[t] = sel
+        return ncnt, bad, sel_by_t, vals_by_t
+
     def _seg_samples(self, ctxs, fmt_col, cells, S):
         """Per-FORMAT-tag sample sub-contexts (reference parity:
         src/vcf_samples.c:1601 per-tag contexts + transpose). Requires one
@@ -831,11 +916,7 @@ class VcfDT(DataType):
         if T == 0 or T > self.MAX_FMT_TAGS or any(len(t) == 0 for t in tags):
             return False
         C = len(cells)
-        data = cells.data
-        ncol = ragged.count_sep_per_row(cells, ord(":"))
-        ncnt = ncol + 1
-        bad = (ncnt > T) | (cells.lens == 0)
-        ncnt = np.where(bad, 0, ncnt)
+        ncnt, bad, sel_by_t, vals_by_t = self._cell_fields(cells, T)
         if bad.any():
             uwx, invx = dedup_col(ragged.take(cells, np.nonzero(bad)[0]))
             ctxs["SMPEXC"] = VBCtx("SMPEXC", MODE_DICT, b250=invx,
@@ -843,21 +924,6 @@ class VcfDT(DataType):
         if bad.any() or (ncnt != T).any():
             ctxs["SMPNC"] = VBCtx("SMPNC", MODE_NUM, local=ncnt.astype(np.int64),
                                   cat="int")
-        cp = np.nonzero(data == ord(":"))[0]
-        fc = np.concatenate([[0], np.cumsum(ncol)])  # first colon of cell
-        cpx = np.concatenate([cp, [0]])  # safe index
-        vals_by_t, sel_by_t = {}, {}
-        for t in range(T):
-            sel = np.nonzero(ncnt > t)[0]
-            if sel.shape[0] == 0:
-                continue
-            st = np.where(t == 0, cells.offsets[:-1][sel],
-                          cpx[fc[sel] + t - 1] + 1)
-            en = np.where(ncnt[sel] - 1 == t, cells.offsets[1:][sel],
-                          cpx[np.minimum(fc[sel] + t, cp.shape[0] - 1
-                                         if cp.shape[0] else 0)])
-            vals_by_t[t] = ragged.gather_ranges(data, st, en - st)
-            sel_by_t[t] = sel
         # GATK cross-tag predictions (src/vcf_gatk.c:915 analog): per-cell
         # DP pred = sum(AD), GQ pred = 2nd-lowest PL - lowest, capped 99.
         # Both are recomputed at PIZ from the reconstructed AD/PL streams.
@@ -1025,6 +1091,31 @@ class VcfDT(DataType):
             ctxs.update(tokenizer_seg_col(name, exc, single_stream=True))
         return True
 
+    @staticmethod
+    def _join_cells_np(subs, sub_off, nsub, C):
+        """Each cell's subfields joined with ':', in numpy (the oracle of
+        native.join_cells)."""
+        total_subs = len(subs)
+        last_of_cell = np.zeros(total_subs, bool)
+        if total_subs:
+            last_of_cell[sub_off[1:][nsub > 0] - 1] = True
+        piece_lens = subs.lens + (~last_of_cell)
+        dst = np.concatenate([[0], np.cumsum(piece_lens)])
+        out = np.empty(int(dst[-1]), np.uint8)
+        sep_at = dst[:-1][~last_of_cell] + subs.lens[~last_of_cell]
+        out[sep_at] = ord(":")
+        tot = int(subs.lens.sum())
+        if tot:
+            pos = ragged.arange(tot) - np.repeat(subs.offsets[:-1],
+                                                 subs.lens)
+            out[np.repeat(dst[:-1], subs.lens) + pos] = subs.data
+        cell_lens = np.zeros(C, np.int64)
+        if total_subs:
+            sub_cell = np.repeat(ragged.arange(C), nsub)
+            cell_lens = np.bincount(sub_cell, weights=piece_lens,
+                                    minlength=C).astype(np.int64)
+        return Col(out, np.concatenate([[0], np.cumsum(cell_lens)]))
+
     def _recon_samples(self, pctxs, ng, nf):
         """Rebuild the sample matrix from per-tag contexts."""
         fmt = pctxs["FORMAT"].dict_take()
@@ -1126,26 +1217,9 @@ class VcfDT(DataType):
         for t, col in cols_by_t.items():
             parts.append((sub_off[:-1][cells_by_t[t]] + t, col))
         subs = ragged.merge_rows(total_subs, parts)
-        # join each cell's subfields with ':'
-        last_of_cell = np.zeros(total_subs, bool)
-        if total_subs:
-            last_of_cell[sub_off[1:][nsub > 0] - 1] = True
-        piece_lens = subs.lens + (~last_of_cell)
-        dst = np.concatenate([[0], np.cumsum(piece_lens)])
-        out = np.empty(int(dst[-1]), np.uint8)
-        sep_at = dst[:-1][~last_of_cell] + subs.lens[~last_of_cell]
-        out[sep_at] = ord(":")
-        tot = int(subs.lens.sum())
-        if tot:
-            pos = ragged.arange(tot) - np.repeat(subs.offsets[:-1],
-                                                 subs.lens)
-            out[np.repeat(dst[:-1], subs.lens) + pos] = subs.data
-        cell_lens = np.zeros(C, np.int64)
-        if total_subs:
-            sub_cell = np.repeat(ragged.arange(C), nsub)
-            cell_lens = np.bincount(sub_cell, weights=piece_lens,
-                                    minlength=C).astype(np.int64)
-        cells = Col(out, np.concatenate([[0], np.cumsum(cell_lens)]))
+        # join each cell's subfields with ':' (one pass in the host runtime)
+        cells = Col(*native.join_cells(subs.data, subs.offsets, nsub,
+                                       ord(":")))
         if bad.any():
             cells = ragged.merge_rows(
                 C, [(np.nonzero(~bad)[0], ragged.take(cells, np.nonzero(~bad)[0])),

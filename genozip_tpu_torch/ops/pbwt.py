@@ -6,13 +6,29 @@ genotype matrix). Durbin's algorithm: haplotypes are kept sorted by reverse
 prefix; each variant row is emitted in the current permutation order (long
 runs of equal alleles, which suit RLE and rANS), then the permutation is
 refined by a stable sort on the emitted alleles. The row loop is serial on
-the host; each row is vectorized over the haplotypes.
+the host: `pbwt_encode`/`pbwt_decode` run it in the C++ host runtime (a
+counting sort a row), as genozip_tpu does with its native runtime;
+`pbwt_encode_np`/`pbwt_decode_np` vectorize each row over the haplotypes in
+numpy.
 """
 
 import numpy as np
 
+from .. import native
+
 
 def pbwt_encode(A: np.ndarray) -> np.ndarray:
+    """A: (n_variants, H) uint8 allele matrix -> Y, each row permuted by the
+    evolving PBWT order."""
+    return native.pbwt_encode(A)
+
+
+def pbwt_decode(Y: np.ndarray) -> np.ndarray:
+    """Inverse of `pbwt_encode`."""
+    return native.pbwt_decode(Y)
+
+
+def pbwt_encode_np(A: np.ndarray) -> np.ndarray:
     """A: (n_variants, H) uint8 allele matrix (values 0..255).
     Returns Y: (n, H), each row permuted by the evolving PBWT order."""
     n, H = A.shape
@@ -26,8 +42,8 @@ def pbwt_encode(A: np.ndarray) -> np.ndarray:
     return Y
 
 
-def pbwt_decode(Y: np.ndarray) -> np.ndarray:
-    """Inverse of `pbwt_encode`."""
+def pbwt_decode_np(Y: np.ndarray) -> np.ndarray:
+    """Inverse of `pbwt_encode_np`."""
     n, H = Y.shape
     perm = np.arange(H, dtype=np.int64)
     A = np.empty_like(Y)

@@ -30,7 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from . import codecs, crypt
+from . import codecs, crypt, native
 from .contexts import PCtx, parse_dict_payload
 from .datatypes import get
 from .deep import DeepIndex
@@ -373,9 +373,13 @@ class PizReader:
         if len(out) != vb_hdr["len"]:
             raise ValueError(f"VB {vb_i}: length {len(out)} != {vb_hdr['len']}")
         # archives written by genozip_tpu with its C++ host runtime also
-        # carry an xxh64 digest ("x64"); the adler32 one is always there
+        # carry an xxh64 digest ("x64"), checked too; the adler32 one is
+        # always there
         if zlib.adler32(out) != vb_hdr["adler"]:
             raise ValueError(f"VB {vb_i}: digest mismatch")
+        if vb_hdr.get("x64") is not None and \
+                native.xxh64(out) != vb_hdr["x64"]:
+            raise ValueError(f"VB {vb_i}: xxh64 digest mismatch")
         return (out, pctxs) if want_pctxs else out
 
     def _apply_gpos_pair_delta(self, pctxs, vb_i):

@@ -16,6 +16,7 @@ system achieves, without the template catalog.
 
 import numpy as np
 
+from . import native
 from .utils import ragged
 from .utils.ragged import Col
 from .contexts import VBCtx, MODE_DICT, MODE_NUM, dedup_col
@@ -90,10 +91,9 @@ def _tokenize_np(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
 
 
 def tokenize_col(data: np.ndarray, offsets: np.ndarray, max_tokens: int):
-    """One-pass tokenizer scan. Returns (tmpl_data, tmpl_lens, vals,
-    tok_idx, widths)."""
-    return _tokenize_np(np.ascontiguousarray(data),
-                        np.ascontiguousarray(offsets, np.int64), max_tokens)
+    """One-pass tokenizer scan in the host runtime (`_tokenize_np`'s
+    streams). Returns (tmpl_data, tmpl_lens, vals, tok_idx, widths)."""
+    return native.tokenize(data, offsets, max_tokens)
 
 
 def tokenizer_seg_col(prefix: str, col: Col, single_stream: bool = False,

@@ -1,14 +1,24 @@
 """Ragged (arrow-style) byte-column utilities.
 
 genozip_tpu_torch's own copy of the parts of genozip_tpu/utils/ragged.py that
-the port uses, on their numpy path only (the JAX package takes its C++ host
-runtime where it loads; the bytes are the same). A *column* is (data:
-uint8[], offsets: int64[n+1]): row i is data[offsets[i]:offsets[i+1]]. All
-operations are whole-column numpy ops (reference src/seg.c:1586
-seg_all_data_lines, src/reconstruct.c:671 reconstruct_from_ctx_do).
+the port uses. A *column* is (data: uint8[], offsets: int64[n+1]): row i is
+data[offsets[i]:offsets[i+1]]. The operations are whole-column numpy ops
+(reference src/seg.c:1586 seg_all_data_lines, src/reconstruct.c:671
+reconstruct_from_ctx_do), with the C++ host runtime (`native`) where
+genozip_tpu takes its own: the range copies of NATIVE_MIN_BYTES or more,
+count_sep_per_row, atoi and itoa (their numpy versions stay as `*_np`,
+the tests' oracles).
 """
 
 import numpy as np
+
+from .. import native
+
+# A range copy goes through the host runtime (about 2 us a pointer through
+# ctypes) from NATIVE_MIN_BYTES copied; below, numpy's repeat and gather of
+# short rows is as fast (`chip_smoke.py` phase 12's threshold lines,
+# PERF.md).
+NATIVE_MIN_BYTES = 8192
 
 _ARANGE = np.arange(0, dtype=np.int64)
 
@@ -72,6 +82,11 @@ def gather_ranges(data: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> Col
     total = int(offsets[-1])
     if total == 0:
         return Col(np.zeros(0, np.uint8), offsets)
+    if total >= NATIVE_MIN_BYTES and data.dtype == np.uint8:
+        out = np.empty(total, np.uint8)
+        native.copy_ranges(data, starts, out, offsets[:-1], lens,
+                           packed=True)
+        return Col(out, offsets)
     # single repeat: src[i] = starts[row] + (i - offsets[row])
     src = np.repeat(starts - offsets[:-1], lens)
     src = src + arange(total)
@@ -149,7 +164,9 @@ def interleave(cols, sep_after=None) -> Col:
         dst = offsets[:-1] + intra
         clens = c.lens
         total = int(clens.sum())
-        if total:
+        if total >= NATIVE_MIN_BYTES:
+            native.copy_ranges(c.data, c.offsets[:-1], out, dst, clens)
+        elif total:
             pos = arange(total) - np.repeat(c.offsets[:-1], clens)
             out[np.repeat(dst, clens) + pos] = c.data
         s = sep_after[j]
@@ -236,8 +253,12 @@ def split_first_fields(line_col: Col, sep: int, k: int):
 
 
 def count_sep_per_row(line_col: Col, sep: int) -> np.ndarray:
-    """Occurrences of byte `sep` in each row: one reduceat over the byte
-    mask."""
+    """Occurrences of byte `sep` in each row."""
+    return native.count_eq(line_col.data, line_col.offsets, sep)
+
+
+def count_sep_per_row_np(line_col: Col, sep: int) -> np.ndarray:
+    """count_sep_per_row in numpy: one reduceat over the byte mask."""
     n = len(line_col)
     if n == 0:
         return np.zeros(0, np.int64)
@@ -296,6 +317,10 @@ def merge_rows(n: int, parts) -> Col:
         total = int(clens.sum())
         if not total:
             continue
+        if total >= NATIVE_MIN_BYTES:
+            native.copy_ranges(c.data, c.offsets[:-1], out,
+                               offsets[:-1][idx], clens)
+            continue
         pos = arange(total) - np.repeat(c.offsets[:-1], clens)
         out[np.repeat(offsets[:-1][idx], clens) + pos] = c.data
     return Col(out, offsets)
@@ -304,6 +329,12 @@ def merge_rows(n: int, parts) -> Col:
 def atoi(col: Col, dtype=np.int64):
     """Parse every row as a decimal integer (optional leading '-').
     Returns (values, ok_mask). Rows failing strict parse get ok=False."""
+    vals, ok = native.atoi(col.data, col.offsets)
+    return vals.astype(dtype, copy=False), ok
+
+
+def atoi_np(col: Col, dtype=np.int64):
+    """atoi in numpy: a right-aligned digit matrix."""
     n = len(col)
     lens = col.lens
     if n == 0:
@@ -339,7 +370,12 @@ def atoi(col: Col, dtype=np.int64):
 
 
 def itoa(vals: np.ndarray) -> Col:
-    """Vectorized int64 -> decimal ascii column."""
+    """int64 -> decimal ascii column."""
+    return Col(*native.itoa(vals))
+
+
+def itoa_np(vals: np.ndarray) -> Col:
+    """itoa in numpy: one digit position a pass."""
     vals = np.asarray(vals, dtype=np.int64)
     n = vals.shape[0]
     if n == 0:

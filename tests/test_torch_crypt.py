@@ -252,6 +252,22 @@ def test_encrypted_archive_equals_reference(host_reference, fixed_salt,
         assert h["gencomp"] and h["ref_internal"]
 
 
+def test_dp_password_equals_plain_and_reference(host_reference, fixed_salt,
+                                                tmp_path):
+    """`zip --dp 4 --password` (zip_file(dp=4) on four CPU devices) with
+    the salt fixed writes the port's plain encrypted archive's bytes and
+    genozip_tpu's zip_file(dp=8) ones; both packages decode it."""
+    src = _fastq(tmp_path)
+    plain, dp, refz = (src + s for s in (".plain.gxz", ".dp.gxz", ".ref.gxz"))
+    zip_pipeline.zip_file(src, plain, password=PW, vb_size=64 << 10)
+    zip_pipeline.zip_file(src, dp, password=PW, vb_size=64 << 10, dp=4)
+    ref_zip.zip_file(src, refz, password=PW, vb_size=64 << 10, dp=8)
+    assert _read(dp) == _read(plain) == _read(refz)
+    piz_pipeline.piz_file(dp, src + ".o1", password=PW)
+    ref_piz.piz_file(dp, src + ".o2", password=PW)
+    assert _read(src + ".o1") == _read(src + ".o2") == _read(src)
+
+
 def test_wrong_and_missing_password(host_reference, tmp_path):
     src = _fastq(tmp_path)
     z = src + ".gxz"

@@ -1,18 +1,20 @@
 """genozip_tpu_torch stands alone: no module of the port, and not
 chip_smoke.py, imports the JAX package genozip_tpu (or jax, or the
 `cryptography` package that genozip_tpu's encryption may use), at the top
-of a file or inside a function; and a run of the port's commands in a fresh
-interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module, no `jax`
-and no `cryptography` in sys.modules. The SAM/BAM modules (sag, translate,
-datatypes/sam, sam_tags, bam), those of deep, bamass, coverage and
-regions, the VCF, PBWT and text datatype modules, and crypt, the AES
-binding, the BWT codec, biopsy and stream, the multi-device modules
-(parallel/) and the seed aligner's binding are among the files walked, and
-SAM/BAM, --deep, --bamass, VCF, `cat --vcf`, translation, --password,
---best, --dp, --mesh and --hosts commands among the runs (a --hosts run
-starts its worker processes through a wrapper that reports what each
-loaded); on a card, SAM and BAM archives from `--device cuda` equal the cpu
-ones."""
+of a file or inside a function; and a run of the port's commands in a
+fresh interpreter leaves no `genozip_tpu` or `genozip_tpu.*` module, no
+`jax` and no `cryptography` in sys.modules, and maps the port's own host
+runtime (genozip_tpu_torch/build/libgxz_host.so) and neither genozip_tpu's
+(genozip_tpu/native/libgxz.so) nor any libdeflate. The SAM/BAM modules
+(sag, translate, datatypes/sam, sam_tags, bam), those of deep, bamass,
+coverage and regions, the VCF, PBWT and text datatype modules, and crypt,
+the AES binding, the BWT codec, biopsy and stream, the multi-device
+modules (parallel/) and the seed aligner's binding are among the files
+walked, and SAM/BAM, --deep, --bamass, VCF, `cat --vcf`, translation,
+--password, --best, --dp, --mesh and --hosts commands among the runs (a
+--hosts run starts its worker processes through a wrapper that reports
+what each loaded); on a card, SAM and BAM archives from `--device cuda`
+equal the cpu ones."""
 
 import ast
 import json
@@ -69,7 +71,8 @@ def test_sources_found():
               "parallel/zip_sharded.py", "parallel/piz_sharded.py",
               "parallel/aligner_sharded.py", "parallel/mesh_aligner.py",
               "parallel/multihost.py", "parallel/flagship.py",
-              "ops/align_cuda.py", "ops/align_torch.py"):
+              "ops/align_cuda.py", "ops/align_torch.py",
+              "native/__init__.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
@@ -182,6 +185,10 @@ finally:
     print("WORKER", json.dumps(sorted(
         k for k in sys.modules if k.split(".")[0] in
         ("jax", "genozip_tpu", "cryptography"))), flush=True)
+    with open("/proc/self/maps") as f:
+        print("WORKERLIBS", json.dumps(sorted(
+            {ln.split()[-1] for ln in f if "libgxz" in ln
+             or "libdeflate" in ln})), flush=True)
 """
 SCRIPT = """
 import json, sys
@@ -197,8 +204,15 @@ if "--hosts" in argv:
 rc = main(argv)
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                 ("jax", "genozip_tpu", "cryptography"))
-print("RESULT", json.dumps({"rc": rc, "loaded": loaded}))
+with open("/proc/self/maps") as f:
+    libs = sorted({ln.split()[-1] for ln in f if "libgxz" in ln
+                   or "libdeflate" in ln})
+print("RESULT", json.dumps({"rc": rc, "loaded": loaded, "libs": libs}))
 """
+HOST_LIB = os.path.realpath(os.path.join(PORT, "build", "libgxz_host.so"))
+# commands that may end without a call into the host runtime (a --hosts
+# run's workers call it, each checked on its own)
+NO_HOST_CALL = {"ls", "zip_hosts"}
 
 
 @pytest.mark.parametrize("case", list(RUNS))
@@ -213,9 +227,14 @@ def test_a_run_loads_no_jax_module(inputs, case, tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     line = [x for x in res.stdout.splitlines() if x.startswith("RESULT ")]
     got = json.loads(line[-1][len("RESULT "):])
+    libs = got.pop("libs")
     assert got == {"rc": 0, "loaded": []}
+    assert libs == [HOST_LIB] or (case in NO_HOST_CALL and libs == [])
     workers = [x for x in res.stdout.splitlines() if x.startswith("WORKER ")]
     assert workers == (["WORKER []"] * 2 if case == "zip_hosts" else [])
+    wlibs = [json.loads(x[len("WORKERLIBS "):]) for x in
+             res.stdout.splitlines() if x.startswith("WORKERLIBS ")]
+    assert wlibs == ([[HOST_LIB]] * 2 if case == "zip_hosts" else [])
     if case in ("zip_dp", "zip_hosts"):
         out = "dp.gxz" if case == "zip_dp" else "h.gxz"
         with open(tmp_path / out, "rb") as a, open(inputs / "r.gxz", "rb") as b:

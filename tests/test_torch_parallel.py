@@ -13,6 +13,7 @@ aligner's doubled mismatch count near a slab boundary), F17 (options
 dropped without a word) and F5 (multi-host SAM without gencomp, the
 scratch directory left behind) are shown and not copied."""
 
+import gzip
 import json
 import os
 import subprocess
@@ -89,6 +90,12 @@ def inputs(tmp_path_factory):
                             hash_bits=20)
     synth.write_paired_fastq(str(d / "m.fastq"), str(d / "m2.fastq"), g,
                              300 << 10, seed=12, block=1000)
+    # BGZF BAM and gzip FASTQ sources (fault F18's inputs)
+    synth.write_bam(str(d / "a.bam"), 1536 << 10, seed=4,
+                    genome_len=1 << 20, window_reads=1500)
+    with open(d / "r.fastq", "rb") as f, \
+            gzip.open(d / "r.fastq.gz", "wb", compresslevel=6) as gz:
+        gz.write(f.read())
     return d
 
 
@@ -179,19 +186,31 @@ def test_sharded_encoder_and_decoder_equal_rans_np(D):
 
 # --- piz_file_dp --------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["r.fastq", "a.sam"])
+@pytest.mark.parametrize("name", ["r.fastq", "a.sam", "a.bam", "r.fastq.gz"])
 def test_piz_file_dp_equals_piz_file(inputs, name, tmp_path):
+    """piz_file_dp writes piz_file's bytes, to a file named as the source
+    (the BGZF BAM's BGZF-exact, the source itself; the gzip FASTQ's the
+    same text) and in memory (the text); fault F18: the port does not copy
+    genozip_tpu's piz_file_dp for these sources."""
     src = str(inputs / name)
+    ext = os.path.splitext(name)[1]
     z = str(tmp_path / "z.gxz")
     zip_pipeline.zip_file(src, z, vb_size=48 << 10)
     piz_pipeline.piz_file(z, str(tmp_path / "host"))
     host = _read(tmp_path / "host")
-    assert host == _read(src)
+    piz_pipeline.piz_file(z, str(tmp_path / ("host" + ext)))
+    named = _read(tmp_path / ("host" + ext))
+    if ext == ".gz":
+        assert gzip.decompress(named) == gzip.decompress(_read(src)) == host
+    elif ext == ".bam":
+        assert named == _read(src) and gzip.decompress(named) == host
+    else:
+        assert named == host == _read(src)
     for dp in (3, 8):
         assert piz_file_dp(z, dp=dp) == host
-        out = str(tmp_path / f"dp{dp}.out")
+        out = str(tmp_path / f"dp{dp}{ext}")
         assert piz_file_dp(z, out, dp=dp) is None
-        assert _read(out) == host
+        assert _read(out) == named
 
 
 def test_piz_file_dp_components_and_partial_output(inputs, tmp_path):
