@@ -10,7 +10,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
 
 1. setup: the card (nvidia-smi name and power limit), torch/CUDA versions,
    and the nvcc builds of the kernels (csrc/rans.cu, csrc/aes.cu,
-   csrc/seed_align.cu) and of the
+   csrc/seed_align.cu, csrc/arith.cu, csrc/pbwt.cu) and of the
    rANS microbenchmarks (csrc/rans_micro.cu), side by side, with ptxas'
    register and spill report; then the g++ build of the host runtime.
 2. kernels: each of the four rANS kernels against its plain PyTorch version
@@ -146,8 +146,33 @@ Phases, each printed on its own lines; any failure exits non-zero:
    64 B-256 KiB drawn from a cfg3 FASTQ's names, SEQ and QUAL; and the
    row counts at which dedup and a range copy gain from the runtime.
 
-They run in the order 2, 2b, 5, 12, 3-4, 6, 11, 7-10, so every phase after
-phase 12 runs with the host runtime on its path. The inputs of phases 7-9 are
+13. devfns: the device functions genozip_tpu leaves to XLA and no CLI
+   command of either package calls (arith_jax, X6; pbwt_*_jnp, X5). The
+   slice's main path, with the launch counts set to 0 before it: the ARITH
+   entry points (`arith_cuda.encode_many`/`decode_many`, both orders) on
+   R = 8 streams of 256 KiB from cfg3 (4 raw QUAL, 4 packed SEQ: the
+   streams ARITH1 competes for) and the PBWT ones
+   (`pbwt.pbwt_encode_torch`/`decode_torch`) on one cfg1 VB's GT matrix
+   (H = 400); each of the four kernels must launch. Then ARITH at n in
+   {0, 1, 100, 4095, 4096, 262143, 262144, 1 MiB}, both orders, with the
+   chosen lanes and N = 16, 64, 256, 1024 (one launch a case each way):
+   every stream decodes on the card and equals native.arith_encode's
+   (chosen lanes), arith_np's (K <= 1024) and the plain version's on the
+   card (K <= 128); drifting streams whose model halves every 3rd step
+   (N = 256) and every step (N = 1024); the main batch against the plain
+   version on the card (exact) and timed through the wrappers, through
+   the C entry points alone and against each step's chain floor
+   (`arith_step_floor`); the PBWT kernels against their plain version and
+   the host runtime on the cfg1 VB, on 512 x 5008 haplotypes (the 2,504
+   diploid samples of 1000 Genomes phase 3; perm in global memory), at
+   H = 1 and n = 0, timed with the row's chain floor (`pbwt_row_floor`).
+   After the run, the ARITH and PBWT launches of every CLI phase must be 0.
+   Phase 4 also prints the host runtime's ARITH calls (calls, bytes,
+   seconds) during its zip and unzip beside `zip:compress-local` and
+   `zip:merge+write`, and phase 10's --best children print theirs.
+
+They run in the order 2, 2b, 5, 12, 13, 3-4, 6, 11, 7-10, so every phase
+after phase 12 runs with the host runtime on its path. The inputs of phases 7-9 are
 written in a child process (`InputWriter`, numpy on the host) while phases
 2, 2b and 5 keep the card busy; phase 3 starts when it is done. Each
 phase's seconds and the total are printed.
@@ -155,7 +180,9 @@ phase's seconds and the total are printed.
 Neither jax, nor any module of the JAX package genozip_tpu, nor
 cryptography may have been imported. The last two lines are a JSON object
 with the numbers of all sixteen TPU kernels' counterparts, of the AES
-kernel and of the seed aligner kernel (time, plain time, the bound: bytes
+kernel, of the seed aligner kernel and of the four ARITH and PBWT kernels
+(phase 13's main path gives their launches; `launches_cli` is 0) (time,
+plain time, the bound: bytes
 at 3.35 TB/s or 32-bit integer operations at 16.7 T/s, whichever is
 larger; launches on the cfg4, cfg3, cfg5, deep, cfg1, cfg2, phase 10 and
 phase 11 paths; seed_align's on phase 11's --mesh run; `ms` through the
@@ -996,6 +1023,7 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False,
     `keep_archive` its archive stays at FASTQ.gxz (phase 11 reuses it)."""
     from genozip_tpu_torch import synth
     from genozip_tpu_torch.ops import rans_cuda
+    from genozip_tpu_torch.utils import profiler
     # 3. device equals host
     fq = os.path.join(tmp, "reads_host.fastq")
     synth.write_fastq(fq, host_mib * MIB, seed=64)
@@ -1014,12 +1042,18 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False,
     z, out = fq + ".gxz", fq + ".out"
     torch.cuda.synchronize()
     rans_cuda.reset_launches()
+    profiler.reset()
     t = time.time()
-    run_cli(["zip", fq, "-o", z, "--device", "cuda", "-q"])
+    with arith_host_calls() as zcalls:
+        run_cli(["zip", fq, "-o", z, "--device", "cuda", "-q"])
     tz = time.time() - t
+    zreg = dict(profiler._totals)
+    profiler.reset()
     t = time.time()
-    run_cli(["unzip", z, "-o", out, "--device", "cuda"])
+    with arith_host_calls() as ucalls:
+        run_cli(["unzip", z, "-o", out, "--device", "cuda"])
     tu = time.time() - t
+    ureg = dict(profiler._totals)
     head = run_cli(["cat", z, "--head", "1000", "--device", "cuda"], True)
     ls = run_cli(["ls", z], True).decode()
     torch.cuda.synchronize()
@@ -1036,6 +1070,13 @@ def phase_cfg3(tmp, smi, full_mib=128, host_mib=32, keep=False,
         f"on {smi}")
     log("full run: ls", ls.strip().splitlines()[-1])
     log(f"full run: launches {counts}")
+    log(f"full run: zip {arith_host_line(zcalls)}; beside zip:compress-local"
+        f" {zreg.get('zip:compress-local', 0.0):.3f} s and zip:merge+write "
+        f"{zreg.get('zip:merge+write', 0.0):.3f} s (summed over threads), "
+        f"wall {tz:.2f} s")
+    log(f"full run: unzip {arith_host_line(ucalls)}; beside "
+        f"piz:read+uncompress {ureg.get('piz:read+uncompress', 0.0):.3f} s, "
+        f"wall {tu:.2f} s")
     missing = [k for k, v in counts.items() if v <= 0]
     if missing:
         raise SystemExit(f"full run: kernels never launched: {missing}")
@@ -1777,8 +1818,9 @@ def section_codecs(path):
 
 
 @contextlib.contextmanager
-def call_times(module, name, sink):
-    """Append the seconds of every call of module.name to `sink`."""
+def call_times(module, name, sink, nbytes=None):
+    """Append the seconds of every call of module.name to `sink`, and with
+    `nbytes` (a list) the length of its first argument there."""
     orig = getattr(module, name)
 
     def wrapped(*a, **k):
@@ -1787,11 +1829,32 @@ def call_times(module, name, sink):
             return orig(*a, **k)
         finally:
             sink.append(time.time() - t)
+            if nbytes is not None:
+                nbytes.append(len(a[0]))
     setattr(module, name, wrapped)
     try:
         yield
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def arith_host_calls():
+    """{function: (seconds, bytes in)} of every call of the host runtime's
+    ARITH coder (native.arith_encode, native.arith_decode) meanwhile."""
+    from genozip_tpu_torch import native
+    calls = {name: ([], []) for name in ("arith_encode", "arith_decode")}
+    with contextlib.ExitStack() as stack:
+        for name, (secs, nb) in calls.items():
+            stack.enter_context(call_times(native, name, secs, nb))
+        yield calls
+
+
+def arith_host_line(calls) -> str:
+    """The calls, bytes and host seconds of `arith_host_calls`."""
+    return "host ARITH: " + ", ".join(
+        f"{name} {len(secs)} calls, {sum(nb)} bytes, {sum(secs):.4f} s"
+        for name, (secs, nb) in calls.items())
 
 
 @contextlib.contextmanager
@@ -2026,11 +2089,19 @@ class ChildCli:
 
 CHILD_CLI = """
 import sys, time
+from chip_smoke import arith_host_calls, arith_host_line
 from genozip_tpu_torch.cli import main
-from genozip_tpu_torch.ops import aes_cuda, rans_cuda
+from genozip_tpu_torch.ops import (aes_cuda, arith_cuda, pbwt_cuda,
+                                   rans_cuda)
 t = time.time()
-rc = main(sys.argv[1:])
-print("launches", {**rans_cuda.launches, **aes_cuda.launches})
+with arith_host_calls() as calls:
+    rc = main(sys.argv[1:])
+print("launches", {**rans_cuda.launches, **aes_cuda.launches,
+                   **arith_cuda.launches, **pbwt_cuda.launches})
+print(arith_host_line(calls))
+if any(arith_cuda.launches.values()) or any(pbwt_cuda.launches.values()):
+    print("a CLI command launched an ARITH or PBWT kernel")
+    rc = 3
 print(f"elapsed {time.time() - t:.3f}")
 sys.exit(rc)
 """
@@ -2490,6 +2561,19 @@ def micro_lib():
     return L
 
 
+def devfns_floor_lib():
+    """csrc/devfns_micro.cu: the ARITH step's and the PBWT row's chain
+    floors."""
+    from genozip_tpu_torch.ops import rans_cuda
+    L = ctypes.CDLL(rans_cuda.lib_path("devfns_micro"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    L.arith_step_floor.argtypes = [ci, ctypes.c_longlong, ci, ci, ci, ci, vp,
+                                   vp]
+    L.pbwt_row_floor.argtypes = [ctypes.c_longlong, ci, ci, ci, vp, vp]
+    L.arith_step_floor.restype = L.pbwt_row_floor.restype = ci
+    return L
+
+
 def _ok(what, rc):
     if rc:
         raise SystemExit(f"micro {what}: CUDA error {rc}")
@@ -2924,8 +3008,389 @@ def ab_host(parent, change):
     return 0
 
 
-PHASES = ("kernels", "micro", "host", "cfg3", "entry", "cfg4", "parallel",
-          "cfg5", "cfg5x", "cfg1", "tools")
+# phase 13 (devfns): the device functions genozip_tpu leaves to XLA, X6
+# (arith_jax) and X5 (pbwt_*_jnp), and their kernels
+ARITH_SIZES = (0, 1, 100, 4095, 4096, 262143, 262144, MIB)
+ARITH_LANES = (16, 64, 256, 1024)
+ARITH_MAIN = 256 * 1024   # each stream of the main batch: 4 raw QUAL, 4
+#                           packed SEQ, the device threshold's size
+ARITH_NP_STEPS = 1024     # arith_np (host numpy) checks streams of <= this K
+ARITH_PLAIN_STEPS = 128   # the plain version on the card: streams of <= K
+ARITH_HALVING_STEPS = 256
+# operations the function needs (arith_np's spec), not this kernel's own:
+# a symbol: its load or store, the (f, cum) lookup, the division by the
+# shared total (4: a multiply-high by the total's reciprocal, a multiply, a
+# compare, a correction), two multiply-adds, the renorm test and the +INC
+# of the update: 11; the symbol's cumulative frequency at order 1 (encode:
+# a Fenwick prefix) and the decoder's search at either order: log2(256) = 8
+# a symbol; a renorm event: a shift and a store, 2; order 0's cumulative
+# row: 256 adds a step. The halving, (f + 1) >> 1 of a context when its
+# total passes MAX_TOTAL, depends on the data and is not counted.
+ARITH_OPS_SYMBOL, ARITH_OPS_SEARCH, ARITH_OPS_EVENT = 11, 8, 2
+ARITH_OPS_STEP = {0: 256, 1: 0}
+# the PBWT (pbwt_np's spec): a value: the perm load, the gather, the store,
+# the bucket's count and the perm scatter, 5; a row: the 256-bucket scan
+PBWT_OPS_VALUE, PBWT_OPS_ROW = 5, 256
+H_1KG = 5008              # 1000 Genomes phase 3: 2,504 diploid samples
+ROWS_1KG = 512            # about 5 MiB of its GT text ('0|0\t' a sample)
+DEVFNS_REPS = 5
+
+
+def cfg1_gt(vcf, vb_bytes=16 * MIB):
+    """The GT matrix (rows, 2 S) of the first `vb_bytes` of a cfg1 VCF, one
+    VB, as `_host_vcf` builds it: allele codes minus '0' (a missing '.' is
+    254)."""
+    with open(vcf, "rb") as f:
+        text = f.read(vb_bytes)
+    rows = [ln.split(b"\t") for ln in text[:text.rindex(b"\n")].split(b"\n")
+            if ln and not ln.startswith(b"#")]
+    if rows[0][8].split(b":")[0] != b"GT":
+        raise SystemExit("devfns: cfg1's FORMAT does not start with GT")
+    gts = np.frombuffer(b"".join(c[:3] for r in rows for c in r[9:]),
+                        np.uint8).reshape(len(rows), -1, 3)
+    if not np.isin(gts[:, :, 1], np.frombuffer(b"|/", np.uint8)).all():
+        raise SystemExit("devfns: cfg1's GT cells are not diploid")
+    return (gts[:, :, [0, 2]].reshape(len(rows), -1) - ord("0")) \
+        .astype(np.uint8)
+
+
+def haplotypes_1kg(rng, n=ROWS_1KG, H=H_1KG):
+    """n rows of H haplotypes sharing ancestry blocks (tests/test_pbwt.py's
+    generator at 64 founders), 3% of the alleles 2..10."""
+    founders = rng.integers(0, 2, (64, n)).astype(np.uint8)
+    A = founders[rng.integers(0, 64, H)].T.copy()
+    A[rng.random((n, H)) < 0.01] ^= 1
+    multi = rng.random((n, H)) < 0.03
+    A[multi] = rng.integers(2, 11, int(multi.sum()))
+    return A
+
+
+def drift_stream(rng, n):
+    """A stream whose 4-symbol alphabet moves along it."""
+    syms = np.frombuffer(b"ABCDEFGHIJKLMNOP", np.uint8)
+    parts = [rng.choice(syms[i:i + 4], -(-n // 12), p=[0.7, 0.2, 0.07, 0.03])
+             for i in range(12)]
+    return np.concatenate(parts)[:n].tobytes()
+
+
+def arith_ops(datas, bufs, order, decode):
+    """Operations the function needs on these streams (ARITH_OPS_*): the
+    encoder's or, with `decode`, the decoder's."""
+    ops = 0
+    for d, b in zip(datas, bufs):
+        n, N = len(d), 1 << b[0]
+        K = -(-n // N)
+        search = ARITH_OPS_SEARCH if order or decode else 0
+        ops += n * (ARITH_OPS_SYMBOL + search) + K * ARITH_OPS_STEP[order] + \
+            (len(b) - 6 - 4 * N) * ARITH_OPS_EVENT
+    return ops
+
+
+def pbwt_ops(n, H):
+    return n * (H * PBWT_OPS_VALUE + PBWT_OPS_ROW)
+
+
+def _event_ms(fn):
+    """ms of one call of fn() on the card (CUDA events; fn may sync)."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return res, a.elapsed_time(b)
+
+
+def _max_err(a, b):
+    """max |a - b| of two byte strings of one length, or a failure."""
+    if len(a) != len(b):
+        raise SystemExit(f"devfns: {len(a)} bytes against {len(b)}")
+    if not a:
+        return 0
+    x, y = np.frombuffer(a, np.uint8), np.frombuffer(b, np.uint8)
+    return int(np.abs(x.astype(np.int16) - y).max())
+
+
+def devfns_main_path(batch, gt):
+    """The slice's main path, as a user calls it: the ARITH entry points
+    (`arith_cuda.encode_many` / `decode_many`, both orders) on the R = 8
+    batch and the PBWT ones (`pbwt.pbwt_encode_torch` / `decode_torch`) on
+    one cfg1 VB's GT matrix; every kernel must launch. Returns (launch
+    counts, {order: streams}, Y)."""
+    from genozip_tpu_torch.ops import arith_cuda, pbwt, pbwt_cuda
+    torch.cuda.synchronize()
+    arith_cuda.reset_launches()
+    pbwt_cuda.reset_launches()
+    enc = {}
+    for order in (0, 1):
+        enc[order] = arith_cuda.encode_many(batch, order, device=CARD)
+        if arith_cuda.decode_many(enc[order], CARD) != batch:
+            raise SystemExit(f"devfns: ARITH{order} does not decode to the "
+                             "batch")
+    Y = pbwt.pbwt_encode_torch(gt, CARD)
+    back = pbwt.pbwt_decode_torch(Y)
+    torch.cuda.synchronize()
+    counts = {**arith_cuda.launches, **pbwt_cuda.launches}
+    if not torch.equal(back.cpu(), torch.from_numpy(gt)):
+        raise SystemExit("devfns: the PBWT does not invert")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"devfns: kernels never launched: {missing}")
+    return counts, enc, Y.cpu().numpy()
+
+
+def check_arith_sizes(rng):
+    """Both orders at every size of ARITH_SIZES and lane count of
+    ARITH_LANES (and choose_num_lanes'): one encode and one decode launch a
+    (order, lanes); the streams decode to the data on the card and equal
+    native.arith_encode's (chosen lanes), arith_np's (K <= ARITH_NP_STEPS)
+    and the plain version's on the card (K <= ARITH_PLAIN_STEPS)."""
+    from genozip_tpu_torch import native, synth
+    from genozip_tpu_torch.ops import arith_cuda, arith_np, arith_torch
+    q = synth.qual_rows(rng, MIB // 150 + 1, 150).reshape(-1)
+    datas = [q[:n].tobytes() for n in ARITH_SIZES]
+    checked = {"native": 0, "arith_np": 0, "plain": 0}
+    for order in (0, 1):
+        for N in (None,) + ARITH_LANES:
+            enc = arith_cuda.encode_many(datas, order, N, CARD)
+            if arith_cuda.decode_many(enc, CARD) != datas:
+                raise SystemExit(f"devfns: ARITH{order} N={N} round trip")
+            for d, e in zip(datas, enc):
+                lanes = N or arith_np.choose_num_lanes(len(d))
+                K = -(-len(d) // lanes)
+                if N is None:
+                    if e != native.arith_encode(d, order) or \
+                            native.arith_decode(e) != d:
+                        raise SystemExit(f"devfns: ARITH{order} n={len(d)}"
+                                         " differs from native")
+                    checked["native"] += 1
+                if K <= ARITH_NP_STEPS:
+                    if e != arith_np.encode(np.frombuffer(d, np.uint8),
+                                            order=order, n_lanes=N):
+                        raise SystemExit(f"devfns: ARITH{order} n={len(d)} "
+                                         f"N={N} differs from arith_np")
+                    checked["arith_np"] += 1
+                if K <= ARITH_PLAIN_STEPS:
+                    t = torch.frombuffer(bytearray(d), dtype=torch.uint8) \
+                        .to(CARD) if d else torch.zeros(0, dtype=torch.uint8,
+                                                        device=CARD)
+                    if arith_torch.encode_plain(t, order, N) != e:
+                        raise SystemExit(f"devfns: ARITH{order} n={len(d)} "
+                                         f"N={N} differs from its plain "
+                                         "version")
+                    checked["plain"] += 1
+    log(f"devfns: ARITH both orders at n in {ARITH_SIZES} and N in "
+        f"{('chosen',) + ARITH_LANES}: every stream decodes on the card; "
+        f"streams checked equal: {checked}")
+    # the model halves: order 0, N lanes all active add N * INC = 24 N a
+    # step to a total kept under 2^15: every 3rd step at N = 256, every
+    # step at N = 1024
+    for N in (256, 1024):
+        d = drift_stream(rng, N * ARITH_HALVING_STEPS)
+        e = arith_cuda.encode(d, 0, N, CARD)
+        t = torch.frombuffer(bytearray(d), dtype=torch.uint8).to(CARD)
+        if e != arith_torch.encode_plain(t, 0, N) or \
+                arith_cuda.decode(e, CARD) != d or \
+                arith_torch.decode_plain(torch.frombuffer(
+                    bytearray(e), dtype=torch.uint8).to(CARD)) != d:
+            raise SystemExit(f"devfns: the halving stream at N={N}")
+    log(f"devfns: ARITH0 on drifting streams of {ARITH_HALVING_STEPS} steps "
+        f"at N = 256 (halving every 3rd step) and N = 1024 (every step): "
+        f"kernel and plain version equal, both directions")
+
+
+def time_arith(batch, enc, order, smi):
+    """arith_encode and arith_decode on the main batch of one order:
+    equal to the plain version on the card, timed through the wrapper (ms)
+    and their C entry point (ms_alone), the plain version once, the bound
+    and the step's chain floor. Returns {kernel: numbers}."""
+    from genozip_tpu_torch.ops import arith_cuda, arith_torch
+    L, F = arith_cuda.lib(), devfns_floor_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    b = arith_torch.prepare_encode(batch, order)
+    data, meta = b.data.to(CARD), b.meta.to(CARD)
+    K = max(-(-len(d) // (1 << int(m[4]))) for d, m in
+            zip(batch, b.meta.tolist()))
+    thr = arith_cuda.threads_for(b.meta)
+    floor = {}
+    sink = torch.empty(1, dtype=torch.int64, device=CARD)
+    for iters in (0, 1):
+        def fl():
+            rc = F.arith_step_floor(order, K, iters, 256, thr, 1,
+                                    sink.data_ptr(), stream)
+            if rc:
+                raise SystemExit(f"arith_step_floor: CUDA error {rc}")
+        floor[iters] = cuda_ms(fl, DEVFNS_REPS) * 1e3 / K
+    [(db, _)] = arith_torch.prepare_decode(enc)
+    nbytes = sum(map(len, batch)) + sum(map(len, enc)) + meta.numel() * 8
+    cases = (("arith_encode", arith_cuda.arith_encode,
+              arith_torch.encode_batch_plain, data, meta, b.out_len,
+              lambda o, r: arith_torch.finish_encode(b, o, r), enc),
+             ("arith_decode", arith_cuda.arith_decode,
+              arith_torch.decode_batch_plain, db.bufs.to(CARD),
+              db.meta.to(CARD), db.n_out,
+              lambda o, r: arith_torch.finish_decode(db, o, r), batch))
+    for name, kfn, pfn, src, m, size, finish, want_io in cases:
+        def kern():
+            return kfn(src, m, order, size)
+        ko, kr = kern()
+        (po, pr), pms = _event_ms(lambda: pfn(src, m, order, size))
+        got, plain = finish(ko, kr), finish(po, pr)
+        if got != want_io:
+            raise SystemExit(f"{name} o{order}: the kernel's result is not "
+                             "the entry points'")
+        err = max(_max_err(x, y) for x, y in zip(got, plain))
+        if err or got != plain:
+            raise SystemExit(f"{name} o{order}: kernel differs from plain "
+                             f"(max_abs_err {err})")
+        ms = cuda_ms(kern, DEVFNS_REPS)
+        o2 = torch.empty(max(size, 1), dtype=torch.uint8, device=CARD)
+        r2 = torch.empty(m.shape[0], dtype=torch.int64, device=CARD)
+
+        def alone():
+            rc = getattr(L, name)(order, src.data_ptr(), m.data_ptr(),
+                                  m.shape[0], thr, o2.data_ptr(),
+                                  r2.data_ptr(), stream)
+            if rc:
+                raise SystemExit(f"{name}: CUDA error {rc}")
+        ams = cuda_ms(alone, DEVFNS_REPS)
+        bms, by = bound_ms(nbytes, arith_ops(batch, enc, order,
+                                             name == "arith_decode"))
+        out[name] = dict(err=err, ms=ms, ms_alone=ams, plain_ms=pms,
+                         bound_ms=bms, bound_by=by, bytes=nbytes, steps=K,
+                         step_us=ms * 1e3 / K, floor_us=floor[0],
+                         floor_event_us=floor[1])
+        log(f"devfns: {name} o{order}: R={len(batch)} x {ARITH_MAIN >> 10} "
+            f"KiB equal to plain (max_abs_err {err}); {ms:.3f} ms through "
+            f"the wrapper, "
+            f"{ams:.3f} ms alone, plain {pms:.1f} ms, bound {bms:.6f} ms "
+            f"({by}, {nbytes} bytes); {K} steps: {ms * 1e3 / K:.3f} us a "
+            f"step against a chain floor of {floor[0]:.3f} us (no event), "
+            f"{floor[1]:.3f} us (one event a lane), on {smi}")
+    return out
+
+
+def check_pbwt(name, A, smi, timed):
+    """pbwt_encode and pbwt_decode on one matrix: equal to the plain
+    version on the card and to the host runtime, and (timed) their times,
+    bound and the row's chain floor. Returns {kernel: numbers}."""
+    from genozip_tpu_torch import native
+    from genozip_tpu_torch.ops import pbwt_cuda, pbwt_torch
+    L = pbwt_cuda.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    flat, meta, work = pbwt_torch.prepare([torch.from_numpy(A).to(CARD)])
+    thr = pbwt_cuda.threads_for(meta)
+    n, H = A.shape
+    Y = native.pbwt_encode(A)
+    out = {}
+    for kname, src, want in (("pbwt_encode", flat, Y),
+                             ("pbwt_decode",
+                              torch.from_numpy(Y.reshape(-1).copy()).to(CARD),
+                              A)):
+        fn = getattr(pbwt_cuda, kname)
+
+        def kern():
+            return fn(src, meta, work)
+        got = kern()
+        plain, pms = _event_ms(lambda: pbwt_torch.batch_plain(
+            src, meta, kname == "pbwt_decode"))
+        err = int((got.int() - plain.int()).abs().max()) if got.numel() \
+            else 0
+        if err or not np.array_equal(got.cpu().numpy().reshape(n, H), want):
+            raise SystemExit(f"{kname} {name}: kernel differs from plain or "
+                             f"the host runtime (max_abs_err {err})")
+        if not timed:
+            continue
+        ms = cuda_ms(kern, DEVFNS_REPS)
+        o2 = torch.empty_like(src)
+        w2 = torch.empty(max(work, 1), dtype=torch.int32, device=CARD)
+
+        def alone():
+            rc = getattr(L, kname)(src.data_ptr(), o2.data_ptr(),
+                                   meta.data_ptr(), 1, thr, w2.data_ptr(),
+                                   stream)
+            if rc:
+                raise SystemExit(f"{kname}: CUDA error {rc}")
+        ams = cuda_ms(alone, DEVFNS_REPS)
+        sink = torch.empty(1, dtype=torch.int64, device=CARD)
+
+        def fl():
+            rc = devfns_floor_lib().pbwt_row_floor(n, H, thr, 1,
+                                                   sink.data_ptr(), stream)
+            if rc:
+                raise SystemExit(f"pbwt_row_floor: CUDA error {rc}")
+        floor = cuda_ms(fl, DEVFNS_REPS) * 1e3 / n
+        nbytes = 2 * n * H + meta.numel() * 8
+        bms, by = bound_ms(nbytes, pbwt_ops(n, H))
+        out[kname] = dict(err=err, ms=ms, ms_alone=ams, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, bytes=nbytes, rows=n,
+                          row_us=ms * 1e3 / n, floor_us=floor)
+        log(f"devfns: {kname} {name} ({n} x {H}): equal to plain and the "
+            f"host runtime; {ms:.3f} ms through the wrapper, {ams:.3f} ms "
+            f"alone, plain {pms:.1f} ms, bound {bms:.6f} ms ({by}, {nbytes}"
+            f" bytes); {ms * 1e3 / n:.3f} us a row against a chain floor of "
+            f"{floor:.3f} us, on {smi}")
+    if not timed:
+        log(f"devfns: pbwt_encode and pbwt_decode {name} ({n} x {H}): equal"
+            " to plain and the host runtime")
+    return out
+
+
+def phase_devfns(tmp, smi):
+    """Phase 13. Returns (the main path's launch counts, {(kernel, shape):
+    numbers})."""
+    from genozip_tpu_torch import synth
+    rng = np.random.default_rng(13)
+    seqs, _ = main_path_streams(rng, [ARITH_MAIN] * 4)
+    _, quals = main_path_streams(rng, [ARITH_MAIN] * 4, raw_qual=True)
+    batch = [x for pair in zip(quals, seqs) for x in pair]
+    vcf = os.path.join(tmp, "cfg1.vcf")
+    if not os.path.exists(vcf):
+        vcf = os.path.join(tmp, "devfns.vcf")
+        synth.write_vcf(vcf, 16 * MIB, seed=9)
+    gt = cfg1_gt(vcf)
+    counts, enc, _ = devfns_main_path(batch, gt)
+    log(f"devfns: main path (arith_cuda.encode_many/decode_many of R=8 "
+        f"cfg3 QUAL and packed SEQ streams of {ARITH_MAIN >> 10} KiB, both "
+        f"orders; "
+        f"pbwt_encode_torch/decode_torch of one cfg1 VB's {gt.shape[0]} x "
+        f"{gt.shape[1]} GT matrix): launches {counts}")
+    meas = {}
+    check_arith_sizes(rng)
+    for order in (0, 1):
+        for k, v in time_arith(batch, enc[order], order, smi).items():
+            meas[(k, f"o{order}")] = v
+    for k, v in check_pbwt("cfg1 VB", gt, smi, True).items():
+        meas[(k, "cfg1")] = v
+    for k, v in check_pbwt("1kg", haplotypes_1kg(rng), smi, True).items():
+        meas[(k, "1kg")] = v
+    check_pbwt("H = 1", rng.integers(0, 3, (64, 1)).astype(np.uint8), smi,
+               False)
+    check_pbwt("n = 0", np.zeros((0, 400), np.uint8), smi, False)
+    return counts, meas
+
+
+DEVFN_ROWS = [  # kernel, the XLA function it replaces, X-item, shape, label
+    ("arith_encode", "arith_jax.py:86", "X6",
+     "R = 8 of 256 KiB, 4 raw QUAL + 4 packed SEQ, order 1", "o1"),
+    ("arith_decode", "arith_jax.py:124", "X6",
+     "R = 8 of 256 KiB, 4 raw QUAL + 4 packed SEQ, order 1", "o1"),
+    ("pbwt_encode", "pbwt.py:46", "X5", "one cfg1 VB's GT matrix, H = 400",
+     "cfg1"),
+    ("pbwt_decode", "pbwt.py:61", "X5", "one cfg1 VB's GT matrix, H = 400",
+     "cfg1"),
+]
+DEVFN_ENTRIES = {
+    "arith_encode": "genozip_tpu_torch.ops.arith_cuda.encode_many",
+    "arith_decode": "genozip_tpu_torch.ops.arith_cuda.decode_many",
+    "pbwt_encode": "genozip_tpu_torch.ops.pbwt.pbwt_encode_torch",
+    "pbwt_decode": "genozip_tpu_torch.ops.pbwt.pbwt_decode_torch"}
+
+
+PHASES = ("kernels", "micro", "host", "devfns", "cfg3", "entry", "cfg4",
+          "parallel", "cfg5", "cfg5x", "cfg1", "tools")
 
 
 def main(argv=None):
@@ -2966,7 +3431,8 @@ def main(argv=None):
         phase_s[name] = time.time() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return res
-    from genozip_tpu_torch.ops import aes_cuda, align_cuda, rans_cuda
+    from genozip_tpu_torch.ops import (aes_cuda, align_cuda, arith_cuda,
+                                       pbwt_cuda, rans_cuda)
 
     # 1. setup
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2986,6 +3452,8 @@ def main(argv=None):
     rans_cuda.lib()
     aes_cuda.lib()
     align_cuda.lib()
+    arith_cuda.lib()
+    pbwt_cuda.lib()
     from genozip_tpu_torch import native
     native.lib()
     log(f"setup: host runtime (genozip_tpu_torch/native) built by g++ in "
@@ -3011,6 +3479,13 @@ def main(argv=None):
         if "host" in phases:
             timed("host", phase_host, tmp, smi,
                   os.path.join(tmp, "cfg5.bam"), os.path.join(tmp, "cfg1.vcf"))
+
+        def devfns_launches():
+            return {**arith_cuda.launches, **pbwt_cuda.launches}
+        dev_counts, dev_meas, dev_before = None, {}, devfns_launches()
+        if "devfns" in phases:                                   # 13
+            dev_counts, dev_meas = timed("devfns", phase_devfns, tmp, smi)
+            dev_before = devfns_launches()
         if "cfg3" in phases:                            # 3 and 4
             counts3, rates3, fq3 = timed("cfg3", phase_cfg3, tmp, smi, 128,
                                          32, "tools" in phases or par, par)
@@ -3031,6 +3506,12 @@ def main(argv=None):
                                   rates3)
     log(f"phases {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}"
         f", total {time.time() - t_start:.1f} s since setup")
+    # no CLI command routes to the ARITH or PBWT kernels, as in genozip_tpu
+    cli_launches = {k: v - dev_before[k]
+                    for k, v in devfns_launches().items()}
+    log(f"ARITH and PBWT kernel launches over the CLI phases: {cli_launches}")
+    if any(cli_launches.values()):
+        raise SystemExit("a CLI command launched an ARITH or PBWT kernel")
     if any(k.split(".")[0] in ("jax", "genozip_tpu", "cryptography")
            for k in sys.modules):
         raise SystemExit("jax, the JAX package genozip_tpu or cryptography "
@@ -3093,6 +3574,41 @@ def main(argv=None):
                  "ms_alone": round(ams, 4),
                  "shape": f"one cfg4 VB, {MESH_VB_READS} reads, Lb 256",
                  "bytes": nbytes, "launches_parallel": seed_launches})
+    for name, line, note, shape, label in DEVFN_ROWS:
+        m = dev_meas[(name, label)]
+        row = {"name": name, "route": "cuda",
+               "source": f"genozip_tpu_torch/csrc/{name.split('_')[0]}.cu",
+               "replaces": f"genozip_tpu/ops/{line}",
+               "launches": dev_counts[name], "max_abs_err": m["err"],
+               "ms": round(m["ms"], 4), "plain_ms": round(m["plain_ms"], 4),
+               "bound_ms": round(m["bound_ms"], 6), "bound_by": m["bound_by"],
+               "library_ms": None, "port_kernel": name,
+               "entry": DEVFN_ENTRIES[name], "tpu_kernel": None,
+               "note": f"XLA device function ({note}), not Pallas; "
+                       "launches 0 on every CLI command, as in genozip_tpu",
+               "shape": shape, "bytes": m["bytes"],
+               "ms_alone": round(m["ms_alone"], 4),
+               "launches_cli": cli_launches[name]}
+        if name.startswith("arith"):
+            o0 = dev_meas[(name, "o0")]
+            row.update(step_us=round(m["step_us"], 4),
+                       chain_floor_us=round(m["floor_us"], 4),
+                       chain_floor_event_us=round(m["floor_event_us"], 4),
+                       ms_o0=round(o0["ms"], 4),
+                       plain_ms_o0=round(o0["plain_ms"], 4),
+                       bound_ms_o0=round(o0["bound_ms"], 6),
+                       step_us_o0=round(o0["step_us"], 4),
+                       chain_floor_us_o0=round(o0["floor_us"], 4))
+        else:
+            k1 = dev_meas[(name, "1kg")]
+            row.update(row_us=round(m["row_us"], 4),
+                       chain_floor_us=round(m["floor_us"], 4),
+                       ms_1kg=round(k1["ms"], 4),
+                       plain_ms_1kg=round(k1["plain_ms"], 4),
+                       bound_ms_1kg=round(k1["bound_ms"], 6),
+                       row_us_1kg=round(k1["row_us"], 4),
+                       chain_floor_us_1kg=round(k1["floor_us"], 4))
+        rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,42 +13,16 @@ place.
 """
 
 import ctypes
-import threading
 
 import torch
 
 from . import aes_torch, rans_cuda
-from .rans_cuda import DeviceKernelError
 
-launches = {"aes256_ctr": 0}
-
-_lock = threading.Lock()
-_lib = None
-
-
-def reset_launches():
-    launches["aes256_ctr"] = 0
-
-
-def lib():
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            rans_cuda.build(names=("aes",))
-            path = rans_cuda.lib_path("aes")
-            try:
-                L = ctypes.CDLL(path)
-            except OSError as e:
-                raise DeviceKernelError(f"cannot load {path}: {e}") from e
-            vp = ctypes.c_void_p
-            L.aes256_ctr.argtypes = [vp, ctypes.c_ulonglong,
-                                     ctypes.c_ulonglong, vp,
-                                     ctypes.c_longlong, vp]
-            L.aes256_ctr.restype = ctypes.c_int
-            _lib = L
-    return _lib
+_vp = ctypes.c_void_p
+_LIB = rans_cuda.KernelLib("aes", {"aes256_ctr": (
+    [_vp, ctypes.c_ulonglong, ctypes.c_ulonglong, _vp, ctypes.c_longlong, _vp],
+    ctypes.c_int)})
+launches, lib, reset_launches = _LIB.launches, _LIB.lib, _LIB.reset_launches
 
 
 def aes256_ctr_xor_(data: torch.Tensor, rk, ctr_hi: int,
@@ -77,10 +51,7 @@ def aes256_ctr_xor_(data: torch.Tensor, rk, ctr_hi: int,
             stream = torch.cuda.current_stream(data.device).cuda_stream
             rc = lib().aes256_ctr(words, ctr_hi, ctr_lo, data.data_ptr(), n,
                                   stream)
-        if rc != 0:
-            raise DeviceKernelError(f"aes256_ctr: CUDA error {rc} at launch")
-        with _lock:
-            launches["aes256_ctr"] += 1
+        _LIB.launched("aes256_ctr", rc)
     return data
 
 

@@ -16,42 +16,18 @@ the second from the entry point's cudaErrorInvalidValue.
 """
 
 import ctypes
-import threading
 
 import torch
 
 from . import align_torch, rans_cuda
-from .rans_cuda import DeviceKernelError
 
-launches = {"seed_align": 0}
 INVALID_VALUE = 1   # cudaErrorInvalidValue: arguments the kernel refuses
 
-_lock = threading.Lock()
-_lib = None
-
-
-def reset_launches():
-    launches["seed_align"] = 0
-
-
-def lib():
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            rans_cuda.build(names=("align",))
-            path = rans_cuda.lib_path("align")
-            try:
-                L = ctypes.CDLL(path)
-            except OSError as e:
-                raise DeviceKernelError(f"cannot load {path}: {e}") from e
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            L.seed_align.argtypes = [vp, vp, ctypes.c_longlong, ci, vp, vp,
-                                     ctypes.c_uint, ci, vp, vp, vp, vp, vp]
-            L.seed_align.restype = ci
-            _lib = L
-    return _lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_LIB = rans_cuda.KernelLib("align", {"seed_align": (
+    [_vp, _vp, ctypes.c_longlong, _ci, _vp, _vp, ctypes.c_uint, _ci, _vp, _vp,
+     _vp, _vp, _vp], _ci)})
+launches, lib, reset_launches = _LIB.launches, _LIB.lib, _LIB.reset_launches
 
 
 def seed_align(codes: torch.Tensor, lens: torch.Tensor, genome: torch.Tensor,
@@ -105,8 +81,5 @@ def seed_align(codes: torch.Tensor, lens: torch.Tensor, genome: torch.Tensor,
                              "columns: it keeps a read's rows in shared "
                              "memory and takes at most MAX_LB "
                              "(csrc/seed_align.cu)")
-        if rc != 0:
-            raise DeviceKernelError(f"seed_align: CUDA error {rc} at launch")
-        with _lock:
-            launches["seed_align"] += 1
+        _LIB.launched("seed_align", rc)
     return gpos, fwd, nmm, aligned

@@ -1,11 +1,18 @@
-"""Bit packing (1/2/4-bit), numpy host versions.
+"""Bit packing (1/2/4-bit): numpy host versions and torch tensor versions.
 
-Counterpart of genozip_tpu/ops/pack.py without its unused jnp halves: values
-are packed little-endian within each byte (value i occupies bits
-[(i*w) % 8, (i*w) % 8 + w) of byte (i*w)//8).
+Counterpart of genozip_tpu/ops/pack.py: values are packed little-endian
+within each byte (value i occupies bits [(i*w) % 8, (i*w) % 8 + w) of byte
+(i*w)//8). `pack_np`/`unpack_np` run on the host; `pack_torch`/
+`unpack_torch` are the counterparts of its `pack_jnp`/`unpack_jnp` (XLA
+elementwise ops there, torch elementwise ops on the tensor's device here),
+equal to them on every uint8 input: a value of 2^width or more is shifted
+within its byte and the shifted values are summed, mod 256, where
+`pack_np` ORs them. Nothing on a CLI path calls the tensor versions, in
+either package.
 """
 
 import numpy as np
+import torch
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 # base -> 2-bit code; non-ACGT maps to 0 (exception channel carries the truth)
@@ -40,6 +47,30 @@ def unpack_np(packed: np.ndarray, width: int, n: int) -> np.ndarray:
         np.right_shift(packed, np.uint8(i * width), out=out[:, i])
     out &= mask
     return out.reshape(-1)[:n]
+
+
+def pack_torch(vals: torch.Tensor, width: int) -> torch.Tensor:
+    """`pack_jnp`: uint8 values (1-D) -> packed bytes on their device."""
+    if width not in (1, 2, 4):
+        raise ValueError(f"width {width}")
+    per = 8 // width
+    pad = (-vals.shape[0]) % per
+    v = torch.cat([vals, vals.new_zeros(pad)]).to(torch.int32).view(-1, per)
+    shifts = torch.arange(per, dtype=torch.int32, device=vals.device) * width
+    return (((v << shifts) & 0xFF).sum(1) & 0xFF).to(torch.uint8)
+
+
+def unpack_torch(packed: torch.Tensor, width: int, n: int) -> torch.Tensor:
+    """`unpack_jnp`: packed bytes -> the first n values, uint8, on their
+    device."""
+    if width not in (1, 2, 4):
+        raise ValueError(f"width {width}")
+    per = 8 // width
+    shifts = torch.arange(per, dtype=torch.int32, device=packed.device) * \
+        width
+    v = (packed.to(torch.int32)[:, None] >> shifts[None, :]) & \
+        ((1 << width) - 1)
+    return v.reshape(-1)[:n].to(torch.uint8)
 
 
 def seq_pack_2bit(seq: np.ndarray):

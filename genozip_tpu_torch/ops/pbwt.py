@@ -9,12 +9,18 @@ refined by a stable sort on the emitted alleles. The row loop is serial on
 the host: `pbwt_encode`/`pbwt_decode` run it in the C++ host runtime (a
 counting sort a row), as genozip_tpu does with its native runtime;
 `pbwt_encode_np`/`pbwt_decode_np` vectorize each row over the haplotypes in
-numpy.
+numpy. `pbwt_encode_torch`/`pbwt_decode_torch` are the counterparts of
+genozip_tpu's device twins `pbwt_encode_jnp`/`pbwt_decode_jnp`: the
+`pbwt_encode`/`pbwt_decode` kernels (csrc/pbwt.cu, ops/pbwt_cuda.py) on the
+card, their plain PyTorch version on the CPU. As in genozip_tpu, the VCF
+seg and recon call the host functions, not the device twins.
 """
 
 import numpy as np
+import torch
 
 from .. import native
+from . import pbwt_cuda
 
 
 def pbwt_encode(A: np.ndarray) -> np.ndarray:
@@ -52,3 +58,21 @@ def pbwt_decode_np(Y: np.ndarray) -> np.ndarray:
         A[i][perm] = y
         perm = perm[np.argsort(y, kind="stable")]
     return A
+
+
+def _device_of(A, device):
+    if device is not None:
+        return device
+    return A.device if isinstance(A, torch.Tensor) else "cuda"
+
+
+def pbwt_encode_torch(A, device=None) -> torch.Tensor:
+    """`pbwt_encode_jnp`'s counterpart: A (n, H) uint8, a tensor (run on its
+    device unless `device` is given) or an array (run on `device`, the card
+    by default) -> Y, a tensor on that device."""
+    return pbwt_cuda.encode_many([A], _device_of(A, device))[0]
+
+
+def pbwt_decode_torch(Y, device=None) -> torch.Tensor:
+    """`pbwt_decode_jnp`'s counterpart: the inverse of `pbwt_encode_torch`."""
+    return pbwt_cuda.decode_many([Y], _device_of(Y, device))[0]

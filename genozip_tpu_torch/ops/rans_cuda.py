@@ -52,28 +52,21 @@ from . import rans_torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-# library name -> source; rans_micro holds microbenchmarks that only
-# chip_smoke.py builds and runs; aes is the AES-256-CTR kernel (aes_cuda.py),
-# align the seed aligner kernel (align_cuda.py)
+# library name -> source; rans_micro and devfns_micro (the ARITH and PBWT
+# chain floors) hold microbenchmarks that only chip_smoke.py builds and
+# runs; aes is the AES-256-CTR kernel (aes_cuda.py), align the seed aligner
+# kernel (align_cuda.py), arith the ARITH-W32 coder (arith_cuda.py) and pbwt
+# the PBWT (pbwt_cuda.py)
 SOURCES = {"rans": "rans.cu", "rans_micro": "rans_micro.cu", "aes": "aes.cu",
-           "align": "seed_align.cu"}
+           "align": "seed_align.cu", "arith": "arith.cu", "pbwt": "pbwt.cu",
+           "devfns_micro": "devfns_micro.cu"}
 
-KERNELS = ("rans_encode_o0", "rans_decode_o0", "rans_encode_o1",
-           "rans_decode_o1")
-launches = dict.fromkeys(KERNELS, 0)
-
-_lock = threading.Lock()
-_lib = None
 
 
 class DeviceKernelError(RuntimeError):
-    """A kernel route (rANS, AES in aes_cuda.py or the seed aligner in
-    align_cuda.py) failed on the card."""
-
-
-def reset_launches():
-    for k in KERNELS:
-        launches[k] = 0
+    """A kernel route (rANS, AES in aes_cuda.py, the seed aligner in
+    align_cuda.py, ARITH in arith_cuda.py or the PBWT in pbwt_cuda.py)
+    failed on the card."""
 
 
 def _nvcc() -> str:
@@ -137,29 +130,56 @@ def build(verbose: bool = False, names=("rans",)) -> str:
     return "\n".join(reports)
 
 
-def lib():
-    global _lib
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            build()
-            try:
-                L = ctypes.CDLL(lib_path())
-            except OSError as e:
-                raise DeviceKernelError(f"cannot load {lib_path()}: {e}") from e
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for name in ("rans_encode_o0", "rans_encode_o1"):
-                fn = getattr(L, name)
-                fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
-                               ctypes.c_longlong, vp]
-                fn.restype = ci
-            for name in ("rans_decode_o0", "rans_decode_o1"):
-                fn = getattr(L, name)
-                fn.argtypes = [vp, vp, vp, vp, vp, ci, vp]
-                fn.restype = ci
-            _lib = L
-    return _lib
+class KernelLib:
+    """One library of SOURCES: built and loaded with ctypes at first use
+    (`lib()`), its entry points given their `signatures` ({name: (argtypes,
+    restype)}), and a launch count for each of its `kernels` (`launches`),
+    which `launched` adds to."""
+
+    def __init__(self, name: str, signatures: dict, kernels=None):
+        self.name, self.signatures = name, signatures
+        self.launches = dict.fromkeys(kernels or signatures, 0)
+        self._lock = threading.Lock()
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            with self._lock:
+                if self._lib is None:
+                    build(names=(self.name,))
+                    path = lib_path(self.name)
+                    try:
+                        L = ctypes.CDLL(path)
+                    except OSError as e:
+                        raise DeviceKernelError(f"cannot load {path}: {e}") \
+                            from e
+                    for fn, (args, res) in self.signatures.items():
+                        getattr(L, fn).argtypes = args
+                        getattr(L, fn).restype = res
+                    self._lib = L
+        return self._lib
+
+    def launched(self, kernel: str, rc: int):
+        """Raise DeviceKernelError if the launch returned a CUDA error, else
+        count it."""
+        if rc != 0:
+            raise DeviceKernelError(f"{kernel}: CUDA error {rc} at launch")
+        with self._lock:
+            self.launches[kernel] += 1
+
+    def reset_launches(self):
+        for k in self.launches:
+            self.launches[k] = 0
+
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_ENC_ARGS = [_vp] * 7 + [_ci, ctypes.c_longlong, _vp]
+_DEC_ARGS = [_vp] * 5 + [_ci, _vp]
+_LIB = KernelLib("rans", {
+    "rans_encode_o0": (_ENC_ARGS, _ci), "rans_decode_o0": (_DEC_ARGS, _ci),
+    "rans_encode_o1": (_ENC_ARGS, _ci), "rans_decode_o1": (_DEC_ARGS, _ci)})
+KERNELS = tuple(_LIB.launches)
+launches, lib, reset_launches = _LIB.launches, _LIB.lib, _LIB.reset_launches
 
 
 def _check(name, t, dtype, ndim=None, shape=None):
@@ -187,13 +207,6 @@ def _tab_shape(order, R):
     return (R, 2, 256) if order == 0 else (R, 2, 256, 256)
 
 
-def _launch(name, rc):
-    if rc != 0:
-        raise DeviceKernelError(f"{name}: CUDA error {rc} at launch")
-    with _lock:
-        launches[name] += 1
-
-
 def _encode(order, data, meta, tab, n_words, n_states):
     name = f"rans_encode_o{order}"
     R = meta.shape[0]
@@ -216,7 +229,7 @@ def _encode(order, data, meta, tab, n_words, n_states):
                 data.data_ptr(), meta.data_ptr(), tab.data_ptr(),
                 work.data_ptr(), words.data_ptr(), p.data_ptr(),
                 states.data_ptr(), R, n, stream)
-        _launch(name, rc)
+        _LIB.launched(name, rc)
     return words, p, states
 
 
@@ -260,7 +273,7 @@ def _decode(order, words, meta, tab, n_out):
             rc = getattr(lib(), name)(
                 words.data_ptr(), meta.data_ptr(), tab.data_ptr(),
                 work.data_ptr(), out.data_ptr(), R, stream)
-        _launch(name, rc)
+        _LIB.launched(name, rc)
     return out
 
 

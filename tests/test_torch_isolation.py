@@ -72,7 +72,9 @@ def test_sources_found():
               "parallel/aligner_sharded.py", "parallel/mesh_aligner.py",
               "parallel/multihost.py", "parallel/flagship.py",
               "ops/align_cuda.py", "ops/align_torch.py",
-              "native/__init__.py"):
+              "native/__init__.py", "ops/arith_cuda.py",
+              "ops/arith_torch.py", "ops/pbwt_cuda.py",
+              "ops/pbwt_torch.py"):
         assert f"genozip_tpu_torch/{m}" in SOURCES
 
 
