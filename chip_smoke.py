@@ -161,8 +161,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
    card (K <= 128); drifting streams whose model halves every 3rd step
    (N = 256) and every step (N = 1024); the main batch against the plain
    version on the card (exact) and timed through the wrappers, through
-   the C entry points alone and against each step's chain floor
-   (`arith_step_floor`); the PBWT kernels against their plain version and
+   the C entry points alone and against the chain floors of the shipped
+   step and of PR 12's, both with the update on the batch's own symbols
+   (`arith_step_floor` versions 2 and 1; scripts/arith_probe.py probes
+   the step piece by piece); the PBWT kernels against their plain version and
    the host runtime on the cfg1 VB, on 512 x 5008 haplotypes (the 2,504
    diploid samples of 1000 Genomes phase 3; perm in global memory), at
    H = 1 and n = 0, timed with the row's chain floor (`pbwt_row_floor`).
@@ -2567,8 +2569,7 @@ def devfns_floor_lib():
     from genozip_tpu_torch.ops import rans_cuda
     L = ctypes.CDLL(rans_cuda.lib_path("devfns_micro"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    L.arith_step_floor.argtypes = [ci, ctypes.c_longlong, ci, ci, ci, ci, vp,
-                                   vp]
+    L.arith_step_floor.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp, vp]
     L.pbwt_row_floor.argtypes = [ctypes.c_longlong, ci, ci, ci, vp, vp]
     L.arith_step_floor.restype = L.pbwt_row_floor.restype = ci
     return L
@@ -2804,10 +2805,89 @@ if "aes__key" in z.files:   # the AES and seed aligner kernels
     out["seed_align_vb"] = chip_smoke.cuda_ms(
         lambda: align_cuda.seed_align(*args, hb), 20)
     out["seed_align_vb_device"] = ab.graph_ms(ab.seed_launch(*args, hb))
+if "arith__b0" in z.files:   # phase 13's ARITH batch, both orders
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("ab_helpers", sys.argv[3])
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    out.update(ab.ab_arith(z))
 print("AB " + json.dumps(out))
 """
 AB_LABELS = ("aes_1mib", "aes_1mib_device", "aes_64mib", "aes_64mib_device",
-             "seed_align_vb", "seed_align_vb_device")
+             "seed_align_vb", "seed_align_vb_device") + tuple(
+    f"arith_{k}_o{o}{d}" for o in (0, 1) for k in ("enc", "dec")
+    for d in ("", "_device"))
+
+
+def arith_launch(name, order, src, meta, size):
+    """A launch of arith_encode or arith_decode through its C entry point
+    on buffers allocated once, with the threads of the arith_cuda that this
+    process imports (a parent's or the change's)."""
+    from genozip_tpu_torch.ops import arith_cuda
+    dst = torch.empty(max(size, 1), dtype=torch.uint8, device=src.device)
+    res = torch.empty(meta.shape[0], dtype=torch.int64, device=src.device)
+    thr = arith_cuda.threads_for(meta.cpu())
+
+    def launch():
+        rc = getattr(arith_cuda.lib(), name)(
+            order, src.data_ptr(), meta.data_ptr(), meta.shape[0], thr,
+            dst.data_ptr(), res.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"{name}: CUDA error {rc}")
+    return launch
+
+
+def ab_arith(z):
+    """--ab's ARITH cases in a checkout's process: arith_encode and
+    arith_decode of both orders on phase 13's batch (the `arith__b*` arrays
+    of z) through the checkout's wrappers, checked equal to the plain
+    version's streams (`arith__o<order>_*`) and data, and alone
+    (arith_launch); ms each."""
+    from genozip_tpu_torch.ops import arith_cuda, arith_torch
+    batch = [z[f"arith__b{i}"].tobytes() for i in range(R)]
+    out = {}
+    for order in (0, 1):
+        want = [z[f"arith__o{order}_{i}"].tobytes() for i in range(R)]
+        b = arith_torch.prepare_encode(batch, order)
+        data, meta = b.data.cuda(), b.meta.cuda()
+        [(db, _)] = arith_torch.prepare_decode(want)
+        bufs, dmeta = db.bufs.cuda(), db.meta.cuda()
+        for key, wrap, src, m, size, finish, res in (
+                ("enc", arith_cuda.arith_encode, data, meta, b.out_len,
+                 lambda o, r: arith_torch.finish_encode(b, o, r), want),
+                ("dec", arith_cuda.arith_decode, bufs, dmeta, db.n_out,
+                 lambda o, r: arith_torch.finish_decode(db, o, r), batch)):
+            def kern(wrap=wrap, src=src, m=m, size=size):
+                return wrap(src, m, order, size)
+            if finish(*kern()) != res:
+                raise SystemExit(f"arith_{key} o{order}: differs from the "
+                                 "plain version")
+            out[f"arith_{key}_o{order}"] = cuda_ms(kern, DEVFNS_REPS)
+            name = "arith_encode" if key == "enc" else "arith_decode"
+            out[f"arith_{key}_o{order}_device"] = cuda_ms(
+                arith_launch(name, order, src, m, size), DEVFNS_REPS)
+    return out
+
+
+def ab_arith_inputs():
+    """Phase 13's batch (R = 8 streams of ARITH_MAIN bytes, 4 raw QUAL and
+    4 packed SEQ, from its seed) and the plain version's streams of both
+    orders, computed on the card, for --ab."""
+    from genozip_tpu_torch.ops import arith_torch
+    rng = np.random.default_rng(13)
+    seqs, _ = main_path_streams(rng, [ARITH_MAIN] * 4)
+    _, quals = main_path_streams(rng, [ARITH_MAIN] * 4, raw_qual=True)
+    batch = [x for pair in zip(quals, seqs) for x in pair]
+    out = {f"arith__b{i}": np.frombuffer(d, np.uint8)
+           for i, d in enumerate(batch)}
+    for order in (0, 1):
+        b = arith_torch.prepare_encode(batch, order)
+        o, lens = arith_torch.encode_batch_plain(b.data.cuda(), b.meta,
+                                                 order, b.out_len)
+        for i, e in enumerate(arith_torch.finish_encode(b, o, lens)):
+            out[f"arith__o{order}_{i}"] = np.frombuffer(e, np.uint8)
+    return out
 
 
 def ab_inputs(rng, genome_bp=CHR20_BP):
@@ -2840,14 +2920,18 @@ def ab_inputs(rng, genome_bp=CHR20_BP):
 
 
 def ab_kernels(parent, change):
-    """Times the six kernels of two checkouts on the same inputs, each
+    """Times the eight kernels of two checkouts on the same inputs, each
     checkout in a fresh interpreter, in the order parent, change, change,
     parent; prints each run and the medians. The rANS kernels go through
     each checkout's own chip_smoke.check_kernel (byte-checked against its
     plain version); aes256_ctr (1 and 64 MiB, a counter that carries) and
     seed_align (one cfg4 VB off a 64 Mbp genome, ab_inputs) through their
     wrappers and alone (CUDA graphs of their C entry points), each checked
-    against its plain version."""
+    against its plain version; arith_encode and arith_decode of both orders
+    on phase 13's batch (ab_arith_inputs) through their wrappers and alone
+    (their C entry points), checked against the plain version's streams.
+    The AES, seed aligner and ARITH cases use this file's helpers on each
+    checkout's package."""
     rng = np.random.default_rng(2024)
     sizes = lambda: [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)]
     seqs, quals = main_path_streams(rng, sizes())
@@ -2859,6 +2943,10 @@ def ab_kernels(parent, change):
     t = time.time()
     extra = ab_inputs(rng)
     log(f"ab: AES and seed_align inputs made in {time.time() - t:.1f} s")
+    t = time.time()
+    extra.update(ab_arith_inputs())
+    log(f"ab: ARITH batch and its plain streams made in "
+        f"{time.time() - t:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -3214,15 +3302,19 @@ def time_arith(batch, enc, order, smi):
     K = max(-(-len(d) // (1 << int(m[4]))) for d, m in
             zip(batch, b.meta.tolist()))
     thr = arith_cuda.threads_for(b.meta)
+    # the chain floors on the batch's own symbols: version 1 PR 12's step
+    # (its blocks have at least 256 threads), version 2 the shipped one
     floor = {}
-    sink = torch.empty(1, dtype=torch.int64, device=CARD)
-    for iters in (0, 1):
-        def fl():
-            rc = F.arith_step_floor(order, K, iters, 256, thr, 1,
-                                    sink.data_ptr(), stream)
-            if rc:
-                raise SystemExit(f"arith_step_floor: CUDA error {rc}")
-        floor[iters] = cuda_ms(fl, DEVFNS_REPS) * 1e3 / K
+    sink = torch.empty(meta.shape[0], dtype=torch.int64, device=CARD)
+    for version, fthr in ((1, max(256, thr)), (2, thr)):
+        for iters in (0, 1):
+            def fl():
+                rc = F.arith_step_floor(version, order, data.data_ptr(),
+                                        meta.data_ptr(), meta.shape[0], iters,
+                                        fthr, sink.data_ptr(), stream)
+                if rc:
+                    raise SystemExit(f"arith_step_floor: CUDA error {rc}")
+            floor[version, iters] = cuda_ms(fl, DEVFNS_REPS) * 1e3 / K
     [(db, _)] = arith_torch.prepare_decode(enc)
     nbytes = sum(map(len, batch)) + sum(map(len, enc)) + meta.numel() * 8
     cases = (("arith_encode", arith_cuda.arith_encode,
@@ -3260,15 +3352,20 @@ def time_arith(batch, enc, order, smi):
                                              name == "arith_decode"))
         out[name] = dict(err=err, ms=ms, ms_alone=ams, plain_ms=pms,
                          bound_ms=bms, bound_by=by, bytes=nbytes, steps=K,
-                         step_us=ms * 1e3 / K, floor_us=floor[0],
-                         floor_event_us=floor[1])
+                         step_us=ms * 1e3 / K, floor_us=floor[2, 0],
+                         floor_event_us=floor[2, 1], floor_v1_us=floor[1, 0],
+                         floor_v1_event_us=floor[1, 1])
         log(f"devfns: {name} o{order}: R={len(batch)} x {ARITH_MAIN >> 10} "
             f"KiB equal to plain (max_abs_err {err}); {ms:.3f} ms through "
             f"the wrapper, "
             f"{ams:.3f} ms alone, plain {pms:.1f} ms, bound {bms:.6f} ms "
             f"({by}, {nbytes} bytes); {K} steps: {ms * 1e3 / K:.3f} us a "
-            f"step against a chain floor of {floor[0]:.3f} us (no event), "
-            f"{floor[1]:.3f} us (one event a lane), on {smi}")
+            f"step ({ams * 1e3 / K:.3f} alone) against a chain floor of "
+            f"{floor[2, 0]:.3f} us (no event), {floor[2, 1]:.3f} us (one "
+            f"event a lane), PR 12's step's {floor[1, 0]:.3f} / "
+            f"{floor[1, 1]:.3f} us, the real update on the batch's symbols "
+            f"in both; the chain at the floor {K * floor[2, 0] / 1e3:.4f} ms "
+            f"against the bound {bms:.6f} ms, on {smi}")
     return out
 
 
@@ -3594,6 +3691,9 @@ def main(argv=None):
             row.update(step_us=round(m["step_us"], 4),
                        chain_floor_us=round(m["floor_us"], 4),
                        chain_floor_event_us=round(m["floor_event_us"], 4),
+                       chain_floor_pr12_us=round(m["floor_v1_us"], 4),
+                       chain_floor_pr12_event_us=round(
+                           m["floor_v1_event_us"], 4),
                        ms_o0=round(o0["ms"], 4),
                        plain_ms_o0=round(o0["plain_ms"], 4),
                        bound_ms_o0=round(o0["bound_ms"], 6),

@@ -16,54 +16,117 @@
 // The plain version is ops/arith_torch.py; the two are byte-equal, and
 // equal to arith_np.encode and native.arith_encode.
 //
-// What bounds it: neither bytes (n in, about n out) nor operations (about
-// 20 integer operations a symbol that the function needs; this kernel
-// spends more, on its block scans and its order-1 row walk), but the chain
-// of K = n / N steps, each a few block-wide barriers that no lane can run
-// ahead of: the model a step reads is the one every lane's previous symbol
-// updated. chip_smoke.py measures that chain's floor
-// (`arith_step_floor`, csrc/devfns_micro.cu).
+// What bounds it on the H100: neither bytes (n in, about n out) nor
+// operations (about 20 integer operations a symbol that the function
+// needs), but the chain of K = n / N steps: the model a step reads is the
+// one every lane's previous symbol updated, so no lane runs ahead of a
+// step's barriers. At the main path's R = 8 streams of 256 KiB (N = 256,
+// K = 1024) the operation bound is about 0.0025 ms, one ns a step; even a
+// step of 0.23 us (PR 12's measured floor) makes the chain 0.24 ms, so no
+// design reaches half that bound there: the yardstick is the step's time
+// against the chain floor that chip_smoke.py measures (`arith_step_floor`
+// version 2, csrc/devfns_micro.cu: this step's barriers, event slots and
+// update on the batch's own symbols, with no symbol coded).
 //
 // Design: one block a stream and one thread a lane (a launch codes R
 // streams of one order through a table of int64 rows; see
-// ops/arith_torch.py); threads past N take part in the barriers only, and
-// a block has at least 256 threads, one a symbol of the model.
-// - The model lives in shared memory as u16 frequencies, two to a u32
-//   word (symbol 2w in the low half, 2w + 1 in the high half). A frequency
+// ops/arith_torch.py); threads past N take part in the barriers only; a
+// block has max(32, N) threads.
+// - The model, in shared memory, is the same for both orders: each context
+//   keeps its 256 frequencies as u16, two to a u32 word (128 words; symbol
+//   2w in the low half), its 16 group sums (one a group of 16 symbols) two
+//   to a word (8 words) and its total. A frequency, a group sum or a total
 //   is at most MAX_TOTAL + N * INC = 57,344 at N = 1024, so a half never
-//   carries, and the update is one shared atomicAdd of INC << 16 (s & 1) a
-//   lane; addition commutes, so the batch is deterministic. Every partial
-//   sum of a row's frequencies is at most its total (< 2^16), so the u32
-//   sum of packed words is two exact u16 sums, and a row walk adds whole
-//   words. Order 1 is 256 x 128 words (128 KiB) plus 256 totals, past the
-//   48 KiB default: cudaFuncSetAttribute gives the block 133.5 KB of
-//   dynamic shared memory, one block a SM. Its rows are swizzled by 16-byte
-//   slot (slot q of row c at q ^ (c & 7)), so that lanes walking different
-//   contexts read different banks.
-// - Cumulative frequencies: order 0 keeps the exclusive cumulative row and
-//   the total (257 words), rebuilt by a block scan of 256 threads after
-//   each update; the encoder reads c there, the decoder binary-searches it
-//   (8 probes). Order 1 walks the lane's context row with 16-byte loads,
-//   8 symbols a load (up to 32 loads); a Fenwick tree a context is the
-//   later, faster form.
-// - Halving: after the update's barrier, threads 0-255 each test one
-//   context's total (order 0: the scan's); while any is over, the over
-//   contexts are listed by a block rank and each warp halves whole rows
-//   (4 words a lane) and sums them by a warp reduction.
-// - Renormalisation: each iteration takes a block-wide exclusive rank of
-//   `go` (__ballot_sync and __popc in the warp, the warps' counts in shared
-//   memory) and loops on __syncthreads_or(go); the counts are double
-//   buffered, so the __syncthreads_or is the iteration's only barrier.
-// - The encoder writes the decoder's byte order itself: lane l's b-th
-//   emitted byte goes to 4 l + b if b < 4, else to the slot of the lane's
-//   (b - 4)-th event, 4 N + its global rank; each lane keeps the ranks of
-//   its last four events in a ring, and the four flush bytes follow the
-//   same rule. A stream's slot holds 6 + 4 N + 8 n bytes; a write past it
-//   is reported (length -1), never made.
-// - The decoder reads event bytes at ptr + rank and checks each read
-//   against the stream's length: a stream that runs out returns status -1
-//   (as native.arith_decode refuses it), never reads past its buffer.
-// - Exact u32 division, as the spec.
+//   carries, and every partial sum of a row's halves is at most its total
+//   (< 2^16): packed words add exactly, low halves and high halves apart.
+//   Order 1 is 256 x (128 + 8) words plus 256 totals and the step's tables,
+//   141.6 KB (the decoder adds its 16 KB body ring: 158.0 KB), past the 48
+//   KB default: cudaFuncSetAttribute, one block a SM. Rows are swizzled by
+//   16-byte slot (slot q of row c at q ^ (c & 7); the group sums' two
+//   slots at q ^ ((c >> 2) & 1)), so that lanes in different contexts read
+//   different banks. Order 0 is one context: 548 bytes.
+// - Lookup (encoder): the two slots of the context's group sums, the two
+//   slots of the symbol's group and the total: five independent loads in
+//   one round; c = the group sums before the symbol's group plus the
+//   frequencies before it in its group, added in registers. Search
+//   (decoder): the total and the group sums, then the group (the count of
+//   inclusive group prefixes <= v), then the group's two slots, then the
+//   symbol within it: two dependent rounds of loads, where PR 12 walked up
+//   to 32 dependent 16-byte loads (order 1) or rebuilt order 0's
+//   cumulative row by a block scan every step.
+// - Renormalisation in each lane, in registers: whether a lane goes
+//   depends only on its own low and rng, never on the bytes read, so a lane
+//   runs its loop alone and counts its events e. The bound: e <= 3. Proof.
+//   Entering a step, rng >= BOT (the loop ended) and the carryless coder
+//   keeps low + rng <= 2^32 as integers (true at the start, kept by coding,
+//   which gives low + (c + f) r <= low + rng, and by each iteration below).
+//   Coding gives rng' = f r >= 2, since r = rng / tot >= 2^16 / 2^15 and
+//   f >= 1. An iteration goes on c1, the top bytes of low and low + rng
+//   equal, which needs rng < 2^24 while low + rng <= 2^32 (rng > 2^32 -
+//   2^24 with low + rng = 2^32 never arises: coding leaves rng <= (1 -
+//   255 / tot) of the old one, and an iteration keeps it under 2^24 once
+//   low + rng = 2^32), or on c2 alone, rng < BOT. A c1 iteration multiplies
+//   rng by 256 and keeps low + rng < 2^32. A c2-only iteration sets rng to
+//   the distance from low to the next multiple of 2^16, at most the old rng,
+//   so low + rng becomes a multiple of 2^16 and, after the shift, of 2^24:
+//   c1 is false from then on, and a second c2-only iteration (rng' < 256)
+//   keeps rng and shifts it past BOT. So a step is at most three c1
+//   iterations (rng' >= 2 is past 2^24 after three), or at most one c1
+//   iteration (after two, rng >= 2^17 is past BOT) and at most two c2-only
+//   ones: at most 3 (arith_jax.py:27-32's R_MAX = 8 is safe, and its
+//   empirical maximum is 3). A lane that would take a 4th sets an error
+//   status (-2), never loops on.
+// - Event slots: the format orders a step's events by iteration, then
+//   lane, so lane l's i-th event goes to the step's first slot plus the
+//   events of iterations before i plus l's rank among the lanes with
+//   e > i. Each warp writes its three ballot counts (one u64) before
+//   barrier A; after it lane j of every warp reads warp j's, and the warp
+//   sums them with __reduce_add_sync (the totals, and the warps before its
+//   own).
+// - Two barriers a step, three on a step that halves. Barrier A follows
+//   every lane's lookup or search and its renorm: it publishes the counts
+//   and orders the step's model reads before its updates. The update adds
+//   with shared atomics (addition commutes: the batch is deterministic).
+//   Order 1: each active lane adds INC to its frequency half, its group-sum
+//   half and its context's total; every total is <= MAX_TOTAL after a step,
+//   so exactly one add a context crosses MAX_TOTAL when the step takes it
+//   over, and its thread lists the context; barrier B is the
+//   __syncthreads_or of the crossings. Order 0: each lane adds to its
+//   frequency half and its group-sum half, and every thread keeps the one
+//   total in a register (it grows by INC x the active lanes, which every
+//   thread knows), so barrier B is a plain __syncthreads and no lane waits
+//   on an atomic's result. Barrier B orders the updates before the next
+//   step's reads and the counts' reuse. On a step that halves, one warp a
+//   listed row halves its 128 words and rebuilds its 8 group-sum words and
+//   total, then a third barrier. One halving is enough: N * INC + 256 <=
+//   MAX_TOTAL for N <= 1024 (arith_jax.py:80, :177; static_assert in
+//   arith_model.cuh). Electing one leader a distinct key with
+//   __match_any_sync, peeling a warp's commonest keys with shuffles and
+//   ballots, or counting order 0's groups with a ballot each, cost more
+//   than the atomics they save on this card (PERF.md, PR 13; the floors of
+//   csrc/devfns_micro.cu keep the first two).
+// - Device memory off the chain: the encoder loads the next step's symbol
+//   before the step's barriers and writes each event byte where the format
+//   puts it (lane l's b-th emitted byte at 4 l + b for b < 4, else at the
+//   slot of its (b - 4)-th event, from a ring of its last four events'
+//   ranks: a byte's slot is always an earlier step's, so the writes go out
+//   before barrier A). A stream's slot holds 6 + 4 N + 8 n bytes; a write
+//   past it is reported (length -1), never made. The decoder reads its event
+//   bytes from a 16 KB ring of the body in shared memory, filled ahead with
+//   cp.async of 16-byte pieces (a 4 KB chunk a step at most, issued after
+//   the step's reads, waited for before the next barrier A, which publishes
+//   it); RING >= CHUNK + 6 N and CHUNK >= 3 N keep the next step's at most
+//   3 N bytes in the ring. Each read is checked against the body's length:
+//   a stream that runs out returns status -1 (as native.arith_decode refuses
+//   it), and no copy reads past the body. The decoder keeps its last 16
+//   symbols in registers and stores them 16 bytes at a time.
+// - Exact u32 division, as the spec (a probe that drops it saves under 3%
+//   of an encoder step).
+// - No indexed register array: a dynamic index puts an array in local
+//   memory, so a half's value is a difference of two prefixes and the
+//   ring of ranks is four named registers. Blocks of at most 256 threads
+//   (the codecs' lane counts) take a build bounded for 256 threads, so
+//   that it may hold more registers than the 1024-thread one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -74,103 +137,46 @@ namespace {
 
 using namespace arithk;
 
-// (f, exclusive cum, total) of `sym` in context `ctx`
+constexpr int RING = 16384;     // the decoder's body ring
+constexpr int CHUNK = 4096;     // bytes a refill, at most one a step
+constexpr int BOUND_BROKEN = -2;
+static_assert(RING >= CHUNK + 6 * MAX_THREADS && CHUNK >= 3 * MAX_THREADS,
+              "the ring holds a step's bytes ahead");
+
 template <int ORDER>
-__device__ __forceinline__ void lookup(const Smem<ORDER>& sm, uint32_t ctx,
-                                       uint32_t sym, uint32_t& f,
-                                       uint32_t& c, uint32_t& tot) {
-  if (!ORDER) {
-    f = half_of(sm.words[sym >> 1], sym);
-    c = sm.aux[sym];
-    tot = sm.aux[256];
-    return;
-  }
-  const uint4* row = reinterpret_cast<const uint4*>(sm.words + ctx * 128);
-  const uint32_t sw = ctx & 7, qs = sym >> 3, wi = (sym >> 1) & 3;
-  uint32_t acc = 0;
-  for (uint32_t q = 0; q < qs; q++) {
-    const uint4 v = row[q ^ sw];
-    acc += v.x + v.y + v.z + v.w;
-  }
-  const uint4 v = row[qs ^ sw];
-  acc += (wi > 0 ? v.x : 0) + (wi > 1 ? v.y : 0) + (wi > 2 ? v.z : 0);
-  const uint32_t word = wi == 0 ? v.x : wi == 1 ? v.y : wi == 2 ? v.z : v.w;
-  if (sym & 1) acc += word & 0xffffu;
-  f = half_of(word, sym);
-  c = (acc & 0xffffu) + (acc >> 16);
-  tot = sm.aux[ctx];
+__host__ __device__ constexpr size_t ring_off() {
+  return (sizeof(Smem<ORDER>) + 15) & ~(size_t)15;
 }
 
-// the decoder's symbol: the number of inclusive cums <= v, at most 255,
-// with its f and exclusive cum
-template <int ORDER>
-__device__ __forceinline__ uint32_t search(const Smem<ORDER>& sm,
-                                           uint32_t ctx, uint32_t v,
-                                           uint32_t& f, uint32_t& c) {
-  if (!ORDER) {
-    uint32_t s = 0;
-#pragma unroll
-    for (uint32_t step = 128; step; step >>= 1)
-      if (sm.aux[s + step] <= v) s += step;
-    f = half_of(sm.words[s >> 1], s);
-    c = sm.aux[s];
-    return s;
-  }
-  const uint4* row = reinterpret_cast<const uint4*>(sm.words + ctx * 128);
-  const uint32_t sw = ctx & 7;
-  uint32_t acc = 0, q = 0;
-  uint4 x;
-  for (;; q++) {
-    x = row[q ^ sw];
-    if (q == 31) break;
-    const uint32_t s = x.x + x.y + x.z + x.w;
-    const uint32_t sum = (s & 0xffffu) + (s >> 16);
-    if (acc + sum > v) break;
-    acc += sum;
-  }
-  const uint32_t ws[4] = {x.x, x.y, x.z, x.w};
-  uint32_t sym = q * 8 + 7;
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    const uint32_t fk = half_of(ws[k >> 1], k);
-    if (acc + fk > v || k == 7) {
-      sym = q * 8 + k;
-      f = fk;
-      break;
-    }
-    acc += fk;
-  }
-  c = acc;
-  return sym;
-}
+// the ranks of a lane's last four events, in registers: event j's at j & 3
+struct Ranks4 {
+  int64_t r0 = 0, r1 = 0, r2 = 0, r3 = 0;
 
-__device__ __forceinline__ int64_t ring_get(const int64_t (&r)[4],
-                                            uint32_t i) {
-  i &= 3;
-  return i == 0 ? r[0] : i == 1 ? r[1] : i == 2 ? r[2] : r[3];
-}
-
-__device__ __forceinline__ void ring_set(int64_t (&r)[4], uint32_t i,
-                                         int64_t v) {
-  i &= 3;
-  if (i == 0) r[0] = v;
-  else if (i == 1) r[1] = v;
-  else if (i == 2) r[2] = v;
-  else r[3] = v;
-}
+  __device__ __forceinline__ int64_t get(uint32_t j) const {
+    j &= 3;
+    return j == 0 ? r0 : j == 1 ? r1 : j == 2 ? r2 : r3;
+  }
+  __device__ __forceinline__ void set(uint32_t j, int64_t v) {
+    j &= 3;
+    r0 = j == 0 ? v : r0;
+    r1 = j == 1 ? v : r1;
+    r2 = j == 2 ? v : r2;
+    r3 = j == 3 ? v : r3;
+  }
+};
 
 // lane l's b-th byte: 4 l + b for b < 4, else the slot of its (b-4)-th event
 __device__ __forceinline__ void put(uint8_t* body, int64_t cap, int N, int l,
-                                    uint32_t b, const int64_t (&ring)[4],
+                                    uint32_t b, const Ranks4& ranks,
                                     uint8_t byte, bool& overflow) {
   const int64_t pos = b < 4 ? 4 * (int64_t)l + b
-                            : 4 * (int64_t)N + ring_get(ring, b);
+                            : 4 * (int64_t)N + ranks.get(b);
   if (pos < cap) body[pos] = byte;
   else overflow = true;
 }
 
-template <int ORDER>
-__global__ void __launch_bounds__(MAX_THREADS)
+template <int ORDER, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 arith_encode_kernel(const uint8_t* __restrict__ data,
                     const int64_t* __restrict__ meta,
                     uint8_t* __restrict__ out, int64_t* __restrict__ lens) {
@@ -190,65 +196,123 @@ arith_encode_kernel(const uint8_t* __restrict__ data,
   uint8_t* body = out + out_off + HEADER;
   const int64_t body_cap = cap - HEADER;
   model_init(sm);
-  uint32_t low = 0, rng = 0xffffffffu, prev = 0, nev = 0;
+  const ActiveLanes lanes(n, K, N);
+  uint32_t low = 0, rng = 0xffffffffu, prev = 0, nev = 0, tot0 = 256;
+  uint32_t cur = lane_len > 0 ? __ldg(src) : 0;
   int64_t ev = 0;                 // events so far, the same in every thread
-  int64_t ring[4] = {0, 0, 0, 0};
-  bool overflow = false;
-  int parity = 0;
+  Ranks4 ranks;
+  bool overflow = false, over = false;
   for (int64_t s = 0; s < K; s++) {
     const bool act = s < lane_len;
-    const uint32_t sym = act ? src[s] : 0;
+    const uint32_t sym = cur;
+    cur = s + 1 < lane_len ? __ldg(src + s + 1) : 0;
     const uint32_t ctx = ORDER ? prev : 0;
     if (act) {
       uint32_t f, c, tot;
-      lookup(sm, ctx, sym, f, c, tot);
+      lookup(sm, ctx, sym, tot0, f, c, tot);
       const uint32_t r = rng / tot;
       low += c * r;
       rng = f * r;
     }
-    for (;;) {
-      const bool c1 = (low ^ (low + rng)) < TOP;
-      const bool go = act && (c1 || rng < BOT);
-      int* ws = sm.wrank[parity];
-      parity ^= 1;
-      const unsigned b = __ballot_sync(FULL, go);
-      if ((t & 31) == 0) ws[t >> 5] = __popc(b);
-      if (!__syncthreads_or(go)) break;
-      int cnt;
-      const int rk = warps_prefix(ws, &cnt) + __popc(b & lanemask_lt());
-      if (go) {
-        if (!c1) rng = (0u - low) & (BOT - 1);
-        put(body, body_cap, N, t, nev, ring, (uint8_t)(low >> 24), overflow);
-        ring_set(ring, nev, ev + rk);
-        nev++;
-        low <<= 8;
-        rng <<= 8;
-      }
-      ev += cnt;
-    }
-    model_update(sm, act, ctx, sym);
+    uint32_t bytes;
+    const uint32_t e = renorm(act, low, rng, &bytes, &over);
+#pragma unroll
+    for (uint32_t i = 0; i < MAX_EVENTS; i++)
+      if (i < e)
+        put(body, body_cap, N, t, nev + i, ranks, (uint8_t)(bytes >> (8 * i)),
+            overflow);
+    publish_counts(sm.cnt, e);
+    __syncthreads();                                   // barrier A
+    uint32_t slot[MAX_EVENTS];
+    const uint32_t step_ev = event_slots(sm.cnt, e, slot);
+#pragma unroll
+    for (uint32_t i = 0; i < MAX_EVENTS; i++)
+      if (i < e) ranks.set(nev + i, ev + slot[i]);
+    nev += e;
+    ev += step_ev;
+    model_update(sm, act, ctx, sym, tot0, lanes.at(s));  // barrier B
     prev = sym;
   }
   if (t < N) {
 #pragma unroll
     for (uint32_t k = 0; k < 4; k++) {
-      put(body, body_cap, N, t, nev + k, ring, (uint8_t)(low >> 24),
+      put(body, body_cap, N, t, nev + k, ranks, (uint8_t)(low >> 24),
           overflow);
       low <<= 8;
     }
   }
   overflow = __syncthreads_or(overflow);
+  over = __syncthreads_or(over);
   if (t == 0) {
     uint8_t* h = out + out_off;
     h[0] = (uint8_t)m[4];
     h[1] = (uint8_t)ORDER;
     for (int k = 0; k < 4; k++) h[2 + k] = (uint8_t)((uint64_t)n >> (8 * k));
-    lens[blockIdx.x] = overflow ? -1 : HEADER + 4 * (int64_t)N + ev;
+    lens[blockIdx.x] = over ? BOUND_BROKEN : overflow ? -1
+                            : HEADER + 4 * (int64_t)N + ev;
   }
 }
 
-template <int ORDER>
-__global__ void __launch_bounds__(MAX_THREADS)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           uint32_t nbytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(nbytes)
+               : "memory");
+}
+
+// The decoder's body in a ring of RING bytes: body byte x at ring
+// position (x + delta) mod RING, delta the body's offset in its aligned
+// 16-byte piece, so whole aligned pieces are copied. fill(p0, p1) copies
+// the pieces [p0, p1) (ring coordinates, multiples of 16) with cp.async,
+// each thread some of them; the bytes past the body are zero-filled, never
+// read, and the piece holding the body's first byte is read byte by byte
+// from that byte on when the body is not aligned.
+struct BodyRing {
+  uint8_t* ring;
+  const uint8_t* base;      // the body's aligned piece
+  int64_t delta, end;       // the body's first and last + 1 ring coordinate
+
+  __device__ void fill(int64_t p0, int64_t p1) const {
+    for (int64_t p = p0 + 16 * (int64_t)threadIdx.x; p < p1;
+         p += 16 * (int64_t)blockDim.x) {
+      uint8_t* dst = ring + (p & (RING - 1));
+      if (p < delta) {                  // the body's first, unaligned piece
+        for (int64_t q = delta; q < 16 && q < end; q++) dst[q] = base[q];
+        continue;
+      }
+      const int64_t left = end - p;
+      cp_async16(dst, base + p, (uint32_t)(left < 16 ? left : 16));
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+};
+
+// the 16 symbols a lane keeps in registers (oldest in the low byte of w0)
+// out to dst: m <= 16 of them, the m latest
+__device__ __forceinline__ void store_syms(uint8_t* dst, uint32_t (&w)[4],
+                                           int m) {
+  for (int k = m; k < 16; k++) {        // the m symbols down to byte 0
+    w[0] = __funnelshift_r(w[0], w[1], 8);
+    w[1] = __funnelshift_r(w[1], w[2], 8);
+    w[2] = __funnelshift_r(w[2], w[3], 8);
+    w[3] >>= 8;
+  }
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if (m == 16 && (a & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if (m == 16 && (a & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; j++) reinterpret_cast<uint32_t*>(dst)[j] = w[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; j++)
+      if (j < m) dst[j] = (uint8_t)(w[j >> 2] >> (8 * (j & 3)));
+  }
+}
+
+template <int ORDER, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 arith_decode_kernel(const uint8_t* __restrict__ bufs,
                     const int64_t* __restrict__ meta,
                     uint8_t* __restrict__ out, int64_t* __restrict__ status) {
@@ -268,55 +332,73 @@ arith_decode_kernel(const uint8_t* __restrict__ bufs,
     code = ((uint32_t)body[4 * t] << 24) | ((uint32_t)body[4 * t + 1] << 16) |
            ((uint32_t)body[4 * t + 2] << 8) | body[4 * t + 3];
   }
+  BodyRing br;
+  br.ring = smem_raw + ring_off<ORDER>();
+  br.delta = (int64_t)(reinterpret_cast<uintptr_t>(body) & 15);
+  br.base = body - br.delta;
+  br.end = br.delta + blen;
+  const int64_t end16 = (br.end + 15) & ~(int64_t)15;
+  int64_t filled = end16 < RING ? end16 : RING;   // ring coordinates
+  br.fill(0, filled);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   uint8_t* dst = out + out_off + (int64_t)t * K;
-  model_init(sm);
-  uint32_t low = 0, rng = 0xffffffffu, prev = 0;
+  model_init(sm);                       // its barrier publishes the ring
+  const ActiveLanes lanes(n, K, N);
+  uint32_t low = 0, rng = 0xffffffffu, prev = 0, tot0 = 256;
+  uint32_t sw[4] = {0, 0, 0, 0};
   int64_t ptr = 4 * (int64_t)N;   // the same in every thread
-  bool bad = false;
-  int parity = 0;
+  bool bad = false, over = false;
   for (int64_t s = 0; s < K; s++) {
     const bool act = s < lane_len;
     const uint32_t ctx = ORDER ? prev : 0;
     uint32_t sym = 0;
     if (act) {
-      uint32_t tot = ORDER ? sm.aux[ctx] : sm.aux[256];
-      tot = tot ? tot : 1;
+      uint32_t gs[8];
+      load_gsums(sm, ctx, gs);
+      const uint32_t tot = ORDER ? sm.total[ctx] : tot0;
       const uint32_t r = rng / tot;
       uint32_t v = (code - low) / (r ? r : 1);
       v = v < tot - 1 ? v : tot - 1;
       uint32_t f, c;
-      sym = search(sm, ctx, v, f, c);
+      sym = search(sm, ctx, gs, v, f, c);
       low += c * r;
       rng = f * r;
-      dst[s] = (uint8_t)sym;
+      sw[0] = __funnelshift_r(sw[0], sw[1], 8);
+      sw[1] = __funnelshift_r(sw[1], sw[2], 8);
+      sw[2] = __funnelshift_r(sw[2], sw[3], 8);
+      sw[3] = (sw[3] >> 8) | (sym << 24);
+      if ((s & 15) == 15 || s + 1 == lane_len)
+        store_syms(dst + (s & ~(int64_t)15), sw, (int)(s & 15) + 1);
     }
-    for (;;) {
-      const bool c1 = (low ^ (low + rng)) < TOP;
-      const bool go = act && (c1 || rng < BOT);
-      int* ws = sm.wrank[parity];
-      parity ^= 1;
-      const unsigned b = __ballot_sync(FULL, go);
-      if ((t & 31) == 0) ws[t >> 5] = __popc(b);
-      if (!__syncthreads_or(go)) break;
-      int cnt;
-      const int rk = warps_prefix(ws, &cnt) + __popc(b & lanemask_lt());
-      if (go) {
-        if (!c1) rng = (0u - low) & (BOT - 1);
-        const int64_t pos = ptr + rk;
-        uint32_t byte = 0;
-        if (pos < blen) byte = body[pos];
-        else bad = true;
-        code = (code << 8) | byte;
-        low <<= 8;
-        rng <<= 8;
-      }
-      ptr += cnt;
+    uint32_t unused;
+    const uint32_t e = renorm(act, low, rng, &unused, &over);
+    publish_counts(sm.cnt, e);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();                                   // barrier A
+    uint32_t slot[MAX_EVENTS];
+    const uint32_t step_ev = event_slots(sm.cnt, e, slot);
+#pragma unroll
+    for (uint32_t i = 0; i < MAX_EVENTS; i++) {
+      if (i >= e) break;
+      const int64_t pos = ptr + slot[i];
+      uint32_t byte = 0;
+      if (pos < blen) byte = br.ring[(pos + br.delta) & (RING - 1)];
+      else bad = true;
+      code = (code << 8) | byte;
     }
-    model_update(sm, act, ctx, sym);
+    // refill the chunk ahead once the bytes below this step's are free
+    if (filled < end16 && filled + CHUNK <= ptr + br.delta + RING) {
+      const int64_t to = filled + CHUNK < end16 ? filled + CHUNK : end16;
+      br.fill(filled, to);
+      filled = to;
+    }
+    ptr += step_ev;
+    model_update(sm, act, ctx, sym, tot0, lanes.at(s));  // barrier B
     prev = sym;
   }
   bad = __syncthreads_or(bad);
-  if (t == 0) status[blockIdx.x] = bad ? -1 : n;
+  over = __syncthreads_or(over);
+  if (t == 0) status[blockIdx.x] = over ? BOUND_BROKEN : bad ? -1 : n;
 }
 
 template <typename Kernel>
@@ -336,32 +418,55 @@ int launch(Kernel kernel, size_t smem, const void* in, const void* meta,
   return (int)cudaGetLastError();
 }
 
+// a block of at most SMALL threads (N <= 256, the lane counts the codecs
+// choose) takes the build that may hold up to 255 registers a thread
+constexpr int SMALL = 256;
+
+template <int ORDER>
+int encode(const void* data, const void* meta, int R, int threads, void* out,
+           void* lens, void* stream) {
+  return threads <= SMALL
+      ? launch(arith_encode_kernel<ORDER, SMALL>, sizeof(Smem<ORDER>), data,
+               meta, R, threads, out, lens, stream)
+      : launch(arith_encode_kernel<ORDER, MAX_THREADS>, sizeof(Smem<ORDER>),
+               data, meta, R, threads, out, lens, stream);
+}
+
+template <int ORDER>
+int decode(const void* bufs, const void* meta, int R, int threads, void* out,
+           void* status, void* stream) {
+  const size_t smem = ring_off<ORDER>() + RING;
+  return threads <= SMALL
+      ? launch(arith_decode_kernel<ORDER, SMALL>, smem, bufs, meta, R,
+               threads, out, status, stream)
+      : launch(arith_decode_kernel<ORDER, MAX_THREADS>, smem, bufs, meta, R,
+               threads, out, status, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // R streams of one order: data holds their symbols, meta R rows of (offset
 // of the symbols, n, offset of the stream's slot in out, the slot's bytes,
-// log2 N, 0); lens[r] gets the stream's length, header included, or -1 if
-// its slot overflowed. threads: a multiple of 32 in [256, 1024], at least
-// every stream's N. Returns the CUDA error of the launch.
+// log2 N, 0); lens[r] gets the stream's length, header included, -1 if its
+// slot overflowed, or -2 if a lane broke the renorm bound. threads: a
+// multiple of 32 in [32, 1024], at least every stream's N. Returns the CUDA
+// error of the launch.
 int arith_encode(int order, const void* data, const void* meta, int R,
                  int threads, void* out, void* lens, void* stream) {
-  return order ? launch(arith_encode_kernel<1>, sizeof(Smem<1>), data, meta,
-                        R, threads, out, lens, stream)
-               : launch(arith_encode_kernel<0>, sizeof(Smem<0>), data, meta,
-                        R, threads, out, lens, stream);
+  return order ? encode<1>(data, meta, R, threads, out, lens, stream)
+               : encode<0>(data, meta, R, threads, out, lens, stream);
 }
 
 // R streams of one order: bufs holds them, meta R rows of (offset of the
 // stream's body, the body's bytes (>= 4 N), offset of its symbols in out, n,
-// log2 N, 0); status[r] gets n, or -1 if the body ran out of bytes.
+// log2 N, 0); status[r] gets n, -1 if the body ran out of bytes, or -2 if a
+// lane broke the renorm bound.
 int arith_decode(int order, const void* bufs, const void* meta, int R,
                  int threads, void* out, void* status, void* stream) {
-  return order ? launch(arith_decode_kernel<1>, sizeof(Smem<1>), bufs, meta,
-                        R, threads, out, status, stream)
-               : launch(arith_decode_kernel<0>, sizeof(Smem<0>), bufs, meta,
-                        R, threads, out, status, stream);
+  return order ? decode<1>(bufs, meta, R, threads, out, status, stream)
+               : decode<0>(bufs, meta, R, threads, out, status, stream);
 }
 
 }  // extern "C"

@@ -36,9 +36,10 @@ launches, lib, reset_launches = _LIB.launches, _LIB.lib, _LIB.reset_launches
 
 
 def threads_for(meta: torch.Tensor) -> int:
-    """A block's threads: one a lane of the widest stream, at least 256."""
+    """A block's threads: one a lane of the widest stream, at least a
+    warp."""
     widest = 1 << int(meta[:, 4].max()) if meta.shape[0] else 1
-    return max(256, widest)
+    return max(32, widest)
 
 
 def _launch(name, order, src, meta, out, res):

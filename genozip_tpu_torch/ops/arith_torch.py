@@ -436,3 +436,125 @@ def decode_batch_plain(bufs, meta, order: int, n_out: int):
             if st > 0:
                 out[o:o + n] = sym
     return out, status
+
+
+# --- the kernels' pieces in plain torch (csrc/arith_model.cuh) -------------
+# The CPU tests hold each against its definition; nothing on a CUDA path
+# calls them. Values are int64 tensors holding u16 and u32 quantities.
+
+GROUP = 16               # symbols a group sum covers
+MAX_EVENTS = 3           # renorm events a lane a step (proof in csrc/arith.cu)
+
+
+def pack_halves(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2k) u16 values -> (..., k) u32 words, value 2i in the low half
+    of word i (the kernels' frequency and group-sum words)."""
+    return x[..., 0::2] | (x[..., 1::2] << 16)
+
+
+def group_sums(freq: torch.Tensor) -> torch.Tensor:
+    """(..., 256) frequencies -> (..., 16) sums of each group of 16."""
+    return freq.reshape(*freq.shape[:-1], 256 // GROUP, GROUP).sum(-1)
+
+
+def prefix16(words: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The kernels' prefix16: the sum of the first k (0..16) halves of 8
+    packed words (..., 8), by adding whole words (and the low half of word
+    k >> 1 when k is odd) and then the two halves of the u32 sum."""
+    i = torch.arange(8, device=words.device)
+    kw = (k >> 1)[..., None]
+    part = torch.where(i < kw, words, torch.where(
+        (i == kw) & ((k & 1)[..., None] == 1), words & 0xFFFF,
+        torch.zeros_like(words)))
+    acc = part.sum(-1) & MASK
+    return (acc & 0xFFFF) + (acc >> 16)
+
+
+def find16(words: torch.Tensor, v: torch.Tensor):
+    """The kernels' find16 on 8 packed words (..., 8): (the number of
+    inclusive prefix sums of the 16 halves that are <= v, the largest of
+    them or 0, the smallest of the others), from the running u32 sum of
+    the words."""
+    p = words.cumsum(-1) & MASK
+    hi_before = torch.cat([torch.zeros_like(p[..., :1]), p[..., :-1] >> 16],
+                          -1)
+    i0, i1 = (p & 0xFFFF) + hi_before, (p & 0xFFFF) + (p >> 16)
+    incl = torch.stack([i0, i1], -1).flatten(-2)          # (..., 16)
+    le = incl <= v[..., None]
+    below = torch.where(le, incl, torch.zeros_like(incl)).amax(-1)
+    above = torch.where(le, torch.full_like(incl, MASK), incl).amin(-1)
+    return le.sum(-1), below, above
+
+
+def lookup_grouped(freq: torch.Tensor, sym: torch.Tensor):
+    """The encoder's lookup on rows of frequencies (..., 256): (f, exclusive
+    cum) of `sym` (...), as the kernel takes them from the packed group
+    sums and the packed frequencies of the symbol's group."""
+    g, k = sym >> 4, sym & 15
+    gw = pack_halves(group_sums(freq))
+    grp = freq.reshape(*freq.shape[:-1], 16, GROUP).gather(
+        -2, g[..., None, None].expand(*g.shape, 1, GROUP))[..., 0, :]
+    fw = pack_halves(grp)
+    before = prefix16(fw, k)
+    return prefix16(fw, k + 1) - before, prefix16(gw, g) + before
+
+
+def search_grouped(freq: torch.Tensor, v: torch.Tensor):
+    """The decoder's search on rows (..., 256) for values v < the rows'
+    totals: (symbol, f, exclusive cum), the group from the packed group
+    sums, then the symbol from the group's packed frequencies."""
+    grp_i, base, _ = find16(pack_halves(group_sums(freq)), v)
+    grp = freq.reshape(*freq.shape[:-1], 16, GROUP).gather(
+        -2, grp_i[..., None, None].expand(*grp_i.shape, 1, GROUP))[..., 0, :]
+    k, within, incl = find16(pack_halves(grp), v - base)
+    return grp_i * GROUP + k, incl - within, base + within
+
+
+def event_slots(e: torch.Tensor):
+    """The slots of a step's renorm events from the lanes' counts e (N,),
+    each 0..MAX_EVENTS: (slots (N, MAX_EVENTS), the step's events). Lane
+    l's i-th event goes after the events of iterations before i and after
+    the lanes before l with more than i events (the format's order:
+    iteration, then lane); slots of events a lane does not have are -1."""
+    i = torch.arange(MAX_EVENTS, device=e.device)
+    go = e[:, None] > i[None, :]                          # (N, 3)
+    totals = go.sum(0)
+    before = torch.cumsum(totals, 0) - totals             # iterations < i
+    rank = torch.cumsum(go, 0) - go.long()                # lanes < l
+    return torch.where(go, before[None, :] + rank, -1), int(totals.sum())
+
+
+def update_step(freq, gsum, total, ctx, sym, active, order=0, perm=None):
+    """The kernels' step update (model_update) on one model, (nctx, 256)
+    frequencies, (nctx, 16) group sums and (nctx,) totals, in place; ctx,
+    sym and active are the N lanes'. Order 1: each active lane adds INC to
+    its frequency, its group sum and its context's total, the total adds in
+    the order `perm` (a permutation of the active lanes; default: lane
+    order), and the add that takes a context's total over MAX_TOTAL lists
+    the context. Order 0 (one context): each active lane adds INC to its
+    frequency and its group sum; the total takes INC x the active lanes at
+    once, and the context is listed when that crosses MAX_TOTAL. The listed
+    contexts are halved once. Returns them in list order."""
+    one = torch.full_like(ctx[active], INC)
+    freq.index_put_((ctx[active], sym[active]), one, accumulate=True)
+    gsum.index_put_((ctx[active], sym[active] >> 4), one, accumulate=True)
+    listed = []
+    if order == 0:
+        old = int(total[0])
+        total[0] = old + INC * int(active.sum())
+        if old <= MAX_TOTAL < int(total[0]):
+            listed.append(0)
+    else:
+        lanes = active.nonzero()[:, 0].tolist()
+        for j in (perm if perm is not None else range(len(lanes))):
+            c = int(ctx[lanes[j]])
+            old = int(total[c])
+            total[c] = old + INC
+            if old <= MAX_TOTAL < old + INC:
+                listed.append(c)
+    if listed:
+        rows = torch.tensor(listed, device=freq.device)
+        freq[rows] = (freq[rows] + 1) >> 1
+        gsum[rows] = group_sums(freq[rows])
+        total[rows] = freq[rows].sum(-1)
+    return listed

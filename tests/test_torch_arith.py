@@ -56,11 +56,22 @@ def corpus(name: str) -> np.ndarray:
         return np.concatenate([rng.choice(syms[i:i + 4], 1000,
                                           p=[0.7, 0.2, 0.07, 0.03])
                                for i in range(12)])
+    if name == "descending":            # the longest group and row walks
+        return np.tile(np.arange(255, -1, -1, dtype=np.uint8), 4)
+    if name == "one_symbol":            # at N = 1024: a halving every step
+        return np.full(1024 * 8, 0x23, np.uint8)
+    if name == "k_not_16":              # K = 38 at 16 lanes, 10 at 64
+        return rng.choice(QUALS, 16 * 37 + 5)
     raise KeyError(name)
 
 
 CORPORA = ("empty", "one", "short", "multiple", "same", "uniform", "all256",
            "drift")
+# the corpora of the redesigned kernels' layout, each with the lane count
+# that exercises it (tests/test_torch_arith_layout.py; on the card at every
+# lane count)
+NEW_CORPORA = (("descending", 16), ("one_symbol", 1024), ("k_not_16", 16),
+               ("one", 1024))
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -261,7 +272,7 @@ def _needs_card():
 @pytest.mark.parametrize("order", [0, 1])
 def test_arith_encode_kernel_equals_plain_on_the_card(order):
     _needs_card()
-    datas = [corpus(k) for k in CORPORA]
+    datas = [corpus(k) for k in CORPORA + tuple(c for c, _ in NEW_CORPORA)]
     for N in (None,) + LANES:
         before = arith_cuda.launches["arith_encode"]
         got = arith_cuda.encode_many(datas, order, N, device="cuda")
@@ -275,7 +286,7 @@ def test_arith_encode_kernel_equals_plain_on_the_card(order):
 @pytest.mark.parametrize("order", [0, 1])
 def test_arith_decode_kernel_equals_plain_on_the_card(order):
     _needs_card()
-    datas = [corpus(k) for k in CORPORA]
+    datas = [corpus(k) for k in CORPORA + tuple(c for c, _ in NEW_CORPORA)]
     for N in (None,) + LANES:
         bufs = [arith_np.encode(d, order=order, n_lanes=N) for d in datas]
         before = arith_cuda.launches["arith_decode"]
@@ -285,6 +296,26 @@ def test_arith_decode_kernel_equals_plain_on_the_card(order):
     good = arith_np.encode(corpus("drift"), order=order)
     with pytest.raises(ValueError):
         arith_cuda.decode(good[:len(good) // 2], device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1])
+def test_kernels_report_damage_on_the_card(order):
+    """A body that runs out gives status -1 beside its neighbours' n; a
+    slot too small gives length -1."""
+    _needs_card()
+    datas = [corpus("uniform")[i * 5000:(i + 1) * 5000] for i in range(3)]
+    enc = [arith_np.encode(d, order=order) for d in datas]
+    cut = [enc[0], enc[1][:len(enc[1]) - 40], enc[2]]
+    [(b, _)] = arith_torch.prepare_decode(cut)
+    _, status = arith_cuda.arith_decode(b.bufs.cuda(), b.meta.cuda(), order,
+                                        b.n_out)
+    assert status.tolist() == [5000, arith_torch.TRUNCATED, 5000]
+    e = arith_torch.prepare_encode([corpus("uniform")], order)
+    e.meta[0, 3] = arith_torch.HEADER + 4 * 64 + 10   # 64 lanes
+    _, lens = arith_cuda.arith_encode(e.data.cuda(), e.meta.cuda(), order,
+                                      e.out_len)
+    assert lens.tolist() == [-1]
 
 
 @pytest.mark.cuda
