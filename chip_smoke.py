@@ -165,9 +165,16 @@ Phases, each printed on its own lines; any failure exits non-zero:
    step and of PR 12's, both with the update on the batch's own symbols
    (`arith_step_floor` versions 2 and 1; scripts/arith_probe.py probes
    the step piece by piece); the PBWT kernels against their plain version and
-   the host runtime on the cfg1 VB, on 512 x 5008 haplotypes (the 2,504
-   diploid samples of 1000 Genomes phase 3; perm in global memory), at
-   H = 1 and n = 0, timed with the row's chain floor (`pbwt_row_floor`).
+   the host runtime on the cfg1 VB and on 512 x 5008 haplotypes (the 2,504
+   diploid samples of 1000 Genomes phase 3), timed through the wrappers
+   and alone beside the rows' chain floors (`pbwt_row_floor` versions 2
+   and 3 for the shipped rows, 1 for PR 12's) and the decoder's first
+   phase (`pbwt_sigmas`) beside `torch.argsort(stable=True)` of the same
+   rows; untimed at H = 1, n = 0, H = 401 (rows off 16-byte alignment),
+   the top of the shared-memory range (12,288) and one past it (perm in
+   the scratch), 65,600 (int32 sort orders), and mixed widths in one
+   launch; scripts/pbwt_probe.py
+   probes PR 12's row piece by piece.
    After the run, the ARITH and PBWT launches of every CLI phase must be 0.
    Phase 4 also prints the host runtime's ARITH calls (calls, bytes,
    seconds) during its zip and unzip beside `zip:compress-local` and
@@ -2570,7 +2577,8 @@ def devfns_floor_lib():
     L = ctypes.CDLL(rans_cuda.lib_path("devfns_micro"))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     L.arith_step_floor.argtypes = [ci, ci, vp, vp, ci, ci, ci, vp, vp]
-    L.pbwt_row_floor.argtypes = [ctypes.c_longlong, ci, ci, ci, vp, vp]
+    L.pbwt_row_floor.argtypes = [ci, ci, ctypes.c_longlong, ci, ci, ci, vp,
+                                 vp]
     L.arith_step_floor.restype = L.pbwt_row_floor.restype = ci
     return L
 
@@ -2811,11 +2819,20 @@ if "arith__b0" in z.files:   # phase 13's ARITH batch, both orders
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     out.update(ab.ab_arith(z))
+if "pbwt__cfg1" in z.files:   # phase 13's two PBWT shapes
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("ab_helpers", sys.argv[3])
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    out.update(ab.ab_pbwt(z))
 print("AB " + json.dumps(out))
 """
+PBWT_AB_SHAPES = ("cfg1", "1kg")
 AB_LABELS = ("aes_1mib", "aes_1mib_device", "aes_64mib", "aes_64mib_device",
              "seed_align_vb", "seed_align_vb_device") + tuple(
     f"arith_{k}_o{o}{d}" for o in (0, 1) for k in ("enc", "dec")
+    for d in ("", "_device")) + tuple(
+    f"pbwt_{k}_{s}{d}" for s in PBWT_AB_SHAPES for k in ("enc", "dec")
     for d in ("", "_device"))
 
 
@@ -2890,6 +2907,69 @@ def ab_arith_inputs():
     return out
 
 
+def ab_pbwt(z):
+    """--ab's PBWT cases in a checkout's process: pbwt_encode and
+    pbwt_decode on phase 13's two shapes (the `pbwt__*` arrays of z),
+    through the checkout's wrappers on buffers its own
+    `pbwt_torch.prepare` sizes (the scratch layouts differ), checked equal
+    to its plain version and to the host runtime's result, and alone (its
+    C entry points on buffers allocated once); ms each."""
+    import inspect
+    from genozip_tpu_torch.ops import pbwt_cuda, pbwt_torch
+    takes = lambda f: "decode" in inspect.signature(f).parameters
+    st = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for shape in PBWT_AB_SHAPES:
+        A, Y = z[f"pbwt__{shape}"], z[f"pbwt__{shape}_y"]
+        for key, X, want, decode in (("enc", A, Y, False),
+                                     ("dec", Y, A, True)):
+            kw = {"decode": decode} if takes(pbwt_torch.prepare) else {}
+            flat, meta, work = pbwt_torch.prepare(
+                [torch.from_numpy(X.copy()).cuda()], **kw)
+            wrap = pbwt_cuda.pbwt_decode if decode else pbwt_cuda.pbwt_encode
+            got = wrap(flat, meta, work)
+            if not torch.equal(got, pbwt_torch.batch_plain(flat, meta,
+                                                           decode)) or \
+                    not np.array_equal(got.cpu().numpy().reshape(X.shape),
+                                       want):
+                raise SystemExit(f"pbwt_{key} {shape}: differs from the "
+                                 "plain version or the host runtime")
+            out[f"pbwt_{key}_{shape}"] = cuda_ms(
+                lambda: wrap(flat, meta, work), DEVFNS_REPS)
+            thr = pbwt_cuda.threads_for(meta.cpu(), **(
+                {"decode": decode} if takes(pbwt_cuda.threads_for) else {}))
+            fn = getattr(pbwt_cuda.lib(),
+                         "pbwt_decode" if decode else "pbwt_encode")
+            o2 = torch.empty_like(flat)
+            w2 = torch.empty(max(work, 1), dtype=torch.int32, device="cuda")
+            table = meta.cuda()      # a parent's prepare makes it there
+
+            def alone():
+                rc = fn(flat.data_ptr(), o2.data_ptr(), table.data_ptr(), 1,
+                        thr, w2.data_ptr(), st)
+                if rc:
+                    raise SystemExit(f"pbwt_{key}: CUDA error {rc}")
+            out[f"pbwt_{key}_{shape}_device"] = cuda_ms(alone, DEVFNS_REPS)
+    return out
+
+
+def ab_pbwt_inputs(tmp):
+    """Phase 13's PBWT shapes for --ab: one cfg1 VB's GT matrix (a 16 MiB
+    synth.write_vcf, seed 9) and 512 x 5008 haplotypes, each with its PBWT
+    from the host runtime."""
+    from genozip_tpu_torch import native, synth
+    vcf = os.path.join(tmp, "ab_cfg1.vcf")
+    synth.write_vcf(vcf, 16 * MIB, seed=9)
+    mats = {"cfg1": cfg1_gt(vcf),
+            "1kg": haplotypes_1kg(np.random.default_rng(13))}
+    os.remove(vcf)
+    out = {}
+    for shape, A in mats.items():
+        out[f"pbwt__{shape}"] = A
+        out[f"pbwt__{shape}_y"] = native.pbwt_encode(A)
+    return out
+
+
 def ab_inputs(rng, genome_bp=CHR20_BP):
     """The inputs of --ab's AES and seed aligner cases: a key, a counter
     whose low 8 bytes carry, 1 MiB and 64 MiB of data; a genome of
@@ -2920,7 +3000,7 @@ def ab_inputs(rng, genome_bp=CHR20_BP):
 
 
 def ab_kernels(parent, change):
-    """Times the eight kernels of two checkouts on the same inputs, each
+    """Times the kernels of two checkouts on the same inputs, each
     checkout in a fresh interpreter, in the order parent, change, change,
     parent; prints each run and the medians. The rANS kernels go through
     each checkout's own chip_smoke.check_kernel (byte-checked against its
@@ -2929,9 +3009,12 @@ def ab_kernels(parent, change):
     wrappers and alone (CUDA graphs of their C entry points), each checked
     against its plain version; arith_encode and arith_decode of both orders
     on phase 13's batch (ab_arith_inputs) through their wrappers and alone
-    (their C entry points), checked against the plain version's streams.
-    The AES, seed aligner and ARITH cases use this file's helpers on each
-    checkout's package."""
+    (their C entry points), checked against the plain version's streams;
+    pbwt_encode and pbwt_decode on phase 13's two shapes (ab_pbwt_inputs)
+    through their wrappers and alone, each checkout sizing its own
+    buffers, checked against its plain version and the host runtime.
+    The AES, seed aligner, ARITH and PBWT cases use this file's helpers on
+    each checkout's package."""
     rng = np.random.default_rng(2024)
     sizes = lambda: [int(rng.integers(1 * MIB, 4 * MIB + 1)) for _ in range(R)]
     seqs, quals = main_path_streams(rng, sizes())
@@ -2947,6 +3030,10 @@ def ab_kernels(parent, change):
     extra.update(ab_arith_inputs())
     log(f"ab: ARITH batch and its plain streams made in "
         f"{time.time() - t:.1f} s")
+    t = time.time()
+    with tempfile.TemporaryDirectory(prefix="gxz_abp_") as tmp:
+        extra.update(ab_pbwt_inputs(tmp))
+    log(f"ab: PBWT matrices and their PBWTs made in {time.time() - t:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -3371,28 +3458,31 @@ def time_arith(batch, enc, order, smi):
 
 def check_pbwt(name, A, smi, timed):
     """pbwt_encode and pbwt_decode on one matrix: equal to the plain
-    version on the card and to the host runtime, and (timed) their times,
-    bound and the row's chain floor. Returns {kernel: numbers}."""
+    version on the card and to the host runtime, and (timed) their times
+    through the wrapper and alone, the bound, the rows' chain floors
+    (`pbwt_row_floor`: version 2 the encoder's row, 3 the decoder's chain
+    row, 1 PR 12's row) and the decoder's first phase alone beside
+    torch.argsort(stable=True). Returns {kernel: numbers}."""
     from genozip_tpu_torch import native
     from genozip_tpu_torch.ops import pbwt_cuda, pbwt_torch
     L = pbwt_cuda.lib()
     stream = torch.cuda.current_stream().cuda_stream
-    flat, meta, work = pbwt_torch.prepare([torch.from_numpy(A).to(CARD)])
-    thr = pbwt_cuda.threads_for(meta)
     n, H = A.shape
     Y = native.pbwt_encode(A)
     out = {}
-    for kname, src, want in (("pbwt_encode", flat, Y),
-                             ("pbwt_decode",
-                              torch.from_numpy(Y.reshape(-1).copy()).to(CARD),
-                              A)):
+    for kname, X, want in (("pbwt_encode", A, Y), ("pbwt_decode", Y, A)):
+        decode = kname == "pbwt_decode"
+        flat, meta, work = pbwt_torch.prepare(
+            [torch.from_numpy(X.copy()).to(CARD)], decode)
+        thr = pbwt_cuda.threads_for(meta, decode)
+        table = meta.to(CARD)        # the C entry points read it on the card
         fn = getattr(pbwt_cuda, kname)
 
         def kern():
-            return fn(src, meta, work)
+            return fn(flat, meta, work)
         got = kern()
         plain, pms = _event_ms(lambda: pbwt_torch.batch_plain(
-            src, meta, kname == "pbwt_decode"))
+            flat, meta, decode))
         err = int((got.int() - plain.int()).abs().max()) if got.numel() \
             else 0
         if err or not np.array_equal(got.cpu().numpy().reshape(n, H), want):
@@ -3401,38 +3491,96 @@ def check_pbwt(name, A, smi, timed):
         if not timed:
             continue
         ms = cuda_ms(kern, DEVFNS_REPS)
-        o2 = torch.empty_like(src)
+        o2 = torch.empty_like(flat)
         w2 = torch.empty(max(work, 1), dtype=torch.int32, device=CARD)
 
         def alone():
-            rc = getattr(L, kname)(src.data_ptr(), o2.data_ptr(),
-                                   meta.data_ptr(), 1, thr, w2.data_ptr(),
+            rc = getattr(L, kname)(flat.data_ptr(), o2.data_ptr(),
+                                   table.data_ptr(), 1, thr, w2.data_ptr(),
                                    stream)
             if rc:
                 raise SystemExit(f"{kname}: CUDA error {rc}")
         ams = cuda_ms(alone, DEVFNS_REPS)
         sink = torch.empty(1, dtype=torch.int64, device=CARD)
-
-        def fl():
-            rc = devfns_floor_lib().pbwt_row_floor(n, H, thr, 1,
-                                                   sink.data_ptr(), stream)
-            if rc:
-                raise SystemExit(f"pbwt_row_floor: CUDA error {rc}")
-        floor = cuda_ms(fl, DEVFNS_REPS) * 1e3 / n
+        floor = {}
+        group = pbwt_torch.group_rows(H) if decode else 1
+        for version, fthr in ((3 if decode else 2, thr),
+                              (1, min(1024, max(256, (H + 31) // 32 * 32)))):
+            def fl(version=version, fthr=fthr):
+                rc = devfns_floor_lib().pbwt_row_floor(
+                    version, group, n, H, fthr, 1, sink.data_ptr(), stream)
+                if rc:
+                    raise SystemExit(f"pbwt_row_floor {version}: CUDA error "
+                                     f"{rc}")
+            floor[version] = cuda_ms(fl, DEVFNS_REPS) * 1e3 / n
         nbytes = 2 * n * H + meta.numel() * 8
         bms, by = bound_ms(nbytes, pbwt_ops(n, H))
-        out[kname] = dict(err=err, ms=ms, ms_alone=ams, plain_ms=pms,
-                          bound_ms=bms, bound_by=by, bytes=nbytes, rows=n,
-                          row_us=ms * 1e3 / n, floor_us=floor)
-        log(f"devfns: {kname} {name} ({n} x {H}): equal to plain and the "
-            f"host runtime; {ms:.3f} ms through the wrapper, {ams:.3f} ms "
-            f"alone, plain {pms:.1f} ms, bound {bms:.6f} ms ({by}, {nbytes}"
-            f" bytes); {ms * 1e3 / n:.3f} us a row against a chain floor of "
-            f"{floor:.3f} us, on {smi}")
+        m = dict(err=err, ms=ms, ms_alone=ams, plain_ms=pms, bound_ms=bms,
+                 bound_by=by, bytes=nbytes, rows=n, row_us=ms * 1e3 / n,
+                 row_us_alone=ams * 1e3 / n,
+                 floor_us=floor[3 if decode else 2], floor_v1_us=floor[1])
+        extra = ""
+        if decode:
+            def sig():
+                rc = L.pbwt_sigmas(flat.data_ptr(), table.data_ptr(), 1,
+                                   thr, w2.data_ptr(), stream)
+                if rc:
+                    raise SystemExit(f"pbwt_sigmas: CUDA error {rc}")
+            rows = flat.view(n, H)
+            m.update(sigmas_ms=cuda_ms(sig, DEVFNS_REPS),
+                     argsort_ms=cuda_ms(lambda: torch.argsort(
+                         rows, dim=1, stable=True), DEVFNS_REPS))
+            extra = (f"; phase 1 (every row's sort order) {m['sigmas_ms']:.4f}"
+                     f" ms against torch.argsort(stable=True)'s "
+                     f"{m['argsort_ms']:.4f} ms")
+        out[kname] = m
+        log(f"devfns: {kname} {name} ({n} x {H}, {thr} threads): equal to "
+            f"plain and the host runtime; {ms:.3f} ms through the wrapper, "
+            f"{ams:.3f} ms alone, plain {pms:.1f} ms, bound {bms:.6f} ms "
+            f"({by}, {nbytes} bytes); {ms * 1e3 / n:.3f} us a row "
+            f"({ams * 1e3 / n:.3f} alone) against a chain floor of "
+            f"{m['floor_us']:.3f} us (PR 12's row {floor[1]:.3f}); the chain "
+            f"at the floor {n * m['floor_us'] / 1e3:.4f} ms against the "
+            f"bound{extra}, on {smi}")
     if not timed:
         log(f"devfns: pbwt_encode and pbwt_decode {name} ({n} x {H}): equal"
             " to plain and the host runtime")
     return out
+
+
+def check_pbwt_batch(mats):
+    """One launch each way (pbwt_cuda.encode_many / decode_many) of
+    matrices of mixed widths: each equal to the host runtime."""
+    from genozip_tpu_torch import native
+    from genozip_tpu_torch.ops import pbwt_cuda
+    enc = pbwt_cuda.encode_many(mats, CARD)
+    Ys = [native.pbwt_encode(A) for A in mats]
+    dec = pbwt_cuda.decode_many(Ys, CARD)
+    for A, Y, E, D in zip(mats, Ys, enc, dec):
+        if not (np.array_equal(E.cpu().numpy(), Y) and
+                np.array_equal(D.cpu().numpy(), A)):
+            raise SystemExit(f"devfns: PBWT of {A.shape} in a launch of "
+                             f"{len(mats)} differs from the host runtime")
+    log(f"devfns: pbwt_encode and pbwt_decode of {len(mats)} matrices in "
+        f"one launch each ({[A.shape for A in mats]}): equal to the host "
+        "runtime")
+
+
+def pbwt_edge_matrices(rng):
+    """The untimed widths: H = 401 (rows off 16-byte alignment), all 256
+    values in every row, the top of the shared-memory range and one past
+    it, and one past u16 sort orders."""
+    from genozip_tpu_torch.ops import pbwt_torch
+    top = pbwt_torch.SMEM_H
+    return {"H = 401": rng.choice(np.array([0, 1, 254], np.uint8), (300, 401),
+                                  p=[0.7, 0.28, 0.02]),
+            "all 256 values": np.stack([rng.permutation(np.arange(768) % 256)
+                                        for _ in range(64)]).astype(np.uint8),
+            f"H = {top}": rng.integers(0, 11, (64, top)).astype(np.uint8),
+            f"H = {top + 1}": rng.integers(0, 11, (32, top + 1))
+            .astype(np.uint8),
+            f"H = {pbwt_torch.U16_H + 65}": rng.integers(
+                0, 3, (4, pbwt_torch.U16_H + 65)).astype(np.uint8)}
 
 
 def phase_devfns(tmp, smi):
@@ -3466,6 +3614,11 @@ def phase_devfns(tmp, smi):
     check_pbwt("H = 1", rng.integers(0, 3, (64, 1)).astype(np.uint8), smi,
                False)
     check_pbwt("n = 0", np.zeros((0, 400), np.uint8), smi, False)
+    edge = pbwt_edge_matrices(rng)
+    for label, A in edge.items():
+        check_pbwt(label, A, smi, False)
+    check_pbwt_batch([gt[:500], rng.integers(0, 3, (40, 1)).astype(np.uint8),
+                      np.zeros((0, 7), np.uint8)] + list(edge.values()))
     return counts, meas
 
 
@@ -3703,11 +3856,18 @@ def main(argv=None):
             k1 = dev_meas[(name, "1kg")]
             row.update(row_us=round(m["row_us"], 4),
                        chain_floor_us=round(m["floor_us"], 4),
+                       chain_floor_pr12_us=round(m["floor_v1_us"], 4),
                        ms_1kg=round(k1["ms"], 4),
+                       ms_alone_1kg=round(k1["ms_alone"], 4),
                        plain_ms_1kg=round(k1["plain_ms"], 4),
                        bound_ms_1kg=round(k1["bound_ms"], 6),
                        row_us_1kg=round(k1["row_us"], 4),
                        chain_floor_us_1kg=round(k1["floor_us"], 4))
+            if name == "pbwt_decode":
+                row.update(sigmas_ms=round(m["sigmas_ms"], 4),
+                           argsort_ms=round(m["argsort_ms"], 4),
+                           sigmas_ms_1kg=round(k1["sigmas_ms"], 4),
+                           argsort_ms_1kg=round(k1["argsort_ms"], 4))
         rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,9 @@
 // (csrc/pbwt.cu): kernels that take the serial chain of a coder's steps or
 // a transform's rows (the same barriers, ranks, scans and model updates)
 // with no symbol coded or value stored; and probes of PR 12's ARITH coder
-// (csrc/arith_v1.cuh) with one piece of its step taken out at a time.
-// Only chip_smoke.py and scripts/arith_probe.py build and run them, to set
+// (csrc/arith_v1.cuh) and PBWT (csrc/pbwt_v1.cuh) with one piece of a step
+// or a row taken out at a time. Only chip_smoke.py, scripts/arith_probe.py
+// and scripts/pbwt_probe.py build and run them, to set
 // beside the coders' times what the chain and each piece cost; no entry
 // point of the package calls them.
 
@@ -13,6 +14,7 @@
 #include "arith_model.cuh"
 #include "arith_v1.cuh"
 #include "pbwt_common.cuh"
+#include "pbwt_v1.cuh"
 
 namespace arith_floor {
 
@@ -471,12 +473,12 @@ int run_var(int var, int decode, const void* in, const void* meta, int R,
 
 namespace pbwt_floor {
 
-using namespace pbwtk;
-
-// the chain floor of a row: the barriers, warp matches and column scans of
-// `rows` rows of H values, with no value loaded or stored
-__global__ void __launch_bounds__(MAX_THREADS)
-pbwt_floor_kernel(int64_t rows, int H, int64_t* sink) {
+// the chain floor of PR 12's row (csrc/pbwt_v1.cuh): the barriers, warp
+// matches and column scans of `rows` rows of H values, with no value loaded
+// or stored
+__global__ void __launch_bounds__(pbwt_v1::MAX_THREADS)
+pbwt_floor_v1_kernel(int64_t rows, int H, int64_t* sink) {
+  using namespace pbwt_v1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int t = threadIdx.x, w = t >> 5, T = blockDim.x, nw = T >> 5;
@@ -501,6 +503,81 @@ pbwt_floor_kernel(int64_t rows, int H, int64_t* sink) {
     }
   }
   if (t == 0) sink[blockIdx.x] = x + w;
+}
+
+// the chain floor of the shipped encoder's row (csrc/pbwt.cu): its sort
+// (pbwtk::sort_row: ranks, barrier 1, place, the scatter of perm into
+// shared memory; the helper warp's next row's flags and code table) and
+// barrier 2, on values
+// made from (row, position) (0, 1 and 254, as a GT row), with nothing
+// loaded from or stored to device memory
+__device__ __forceinline__ int floor_value(int64_t i, int j) {
+  const int x = (int)i ^ j;
+  return (x & 63) == 5 ? 254 : (x & 3) == 0;
+}
+
+template <int SEG>
+__global__ void __launch_bounds__(pbwtk::MAX_THREADS)
+pbwt_floor_v2_kernel(int64_t rows, int H, int64_t* sink) {
+  using namespace pbwtk;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = threadIdx.x, T = blockDim.x, nw = (T >> 5) - 1;
+  const int ns = 32 * nw;
+  Tables tb;
+  tb.carve(smem_raw, nw);
+  uint16_t* dst = reinterpret_cast<uint16_t*>(smem_raw + table_bytes(nw));
+  __syncthreads();
+  for (int j = t; j < H; j += T) tb.row_flags(0)[floor_value(0, j)] = 1;
+  __syncthreads();
+  if (t >= ns) {
+    const int np = code_table(tb.row_flags(0), tb.row_codes(0));
+    if (t == ns) tb.np[0] = np;
+  }
+  __syncthreads();
+  for (int64_t i = 0; i < rows; i++) {
+    if (t >= ns) {
+      uint8_t* f = tb.row_flags(i + 1);
+#pragma unroll 4
+      for (int j = t - ns; j < H; j += 32) f[floor_value(i + 1, j)] = 1;
+      helper_row(tb, i, true);
+    } else {
+      const int np = tb.np[i & 1];
+      sort_row<SEG, 2>(
+          tb, np, tb.row_codes(i), H,
+          [&](int j, bool, int& v, int& pay) {
+            v = floor_value(i, j);
+            pay = j;
+          },
+          [&](int d, int pay) { dst[d] = (uint16_t)pay; }, [] {});
+    }
+    __syncthreads();
+  }
+  if (t == 0) sink[blockIdx.x] = dst[0] + dst[H - 1];
+}
+
+// the chain floor of the decoder's row: `group` rows a barrier, each row
+// a gather of perm[H - 1 - j] and a staged byte at it (one shared-memory
+// gather a row), then perm_new[j] = perm[H - 1 - j] and the barrier; group
+// 1 is a row a barrier
+__global__ void __launch_bounds__(pbwtk::MAX_THREADS)
+pbwt_floor_v3_kernel(int64_t rows, int H, int group, int64_t* sink) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* src = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* dst = src + pbwtk::SMEM_H;
+  uint8_t* stage = reinterpret_cast<uint8_t*>(dst + pbwtk::SMEM_H);
+  const int t = threadIdx.x, T = blockDim.x;
+  for (int j = t; j < H; j += T) src[j] = (uint16_t)j;
+  __syncthreads();
+  for (int64_t i = 0; i < rows; i += group) {
+    for (int k = 1; k < group; k++)
+      for (int j = t; j < H; j += T) stage[src[H - 1 - j]] = (uint8_t)k;
+    for (int j = t; j < H; j += T) dst[j] = src[H - 1 - j];
+    __syncthreads();
+    uint16_t* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  if (t == 0) sink[blockIdx.x] = src[0] + stage[0];
 }
 
 }  // namespace pbwt_floor
@@ -556,18 +633,55 @@ int arith_probe_run(int var, int order, int decode, const void* in,
                                          out, res, stream);
 }
 
-// pbwt_floor_kernel on R blocks of `threads` threads
-int pbwt_row_floor(long long rows, int H, int threads, int R, void* sink,
+// the chain floor of a PBWT row on R blocks of `threads` threads: version
+// 1 PR 12's row (pbwt_floor_v1_kernel), 2 the shipped encoder's
+// (pbwt_floor_v2_kernel; a sorting warp and the helper at least, H <= 16
+// sorting threads and SMEM_H), 3 the decoder's
+// chain (pbwt_floor_v3_kernel; H <= SMEM_H) at `group` rows a barrier
+int pbwt_row_floor(int version, int group, long long rows, int H,
+                   int threads, int R, void* sink, void* stream) {
+  using namespace pbwt_floor;
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto go = [&](auto kernel, size_t smem, auto... args) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<R, threads, smem, st>>>(rows, H, args..., (int64_t*)sink);
+    return (int)cudaGetLastError();
+  };
+  if (threads < 32 || threads > 1024 || threads % 32 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  if (version == 1)
+    return threads < pbwt_v1::MIN_THREADS
+               ? (int)cudaErrorInvalidValue
+               : go(pbwt_floor_v1_kernel, sizeof(pbwt_v1::Smem));
+  if (version == 2 && H <= pbwtk::SMEM_H && threads >= 64) {
+    const int nw = threads / 32 - 1;
+    const size_t smem = pbwtk::table_bytes(nw) + 2 * pbwtk::SMEM_H;
+    switch (pbwtk::seg_class(H, nw)) {
+      case 1: return go(pbwt_floor_v2_kernel<1>, smem);
+      case 2: return go(pbwt_floor_v2_kernel<2>, smem);
+      case 4: return go(pbwt_floor_v2_kernel<4>, smem);
+      case 8: return go(pbwt_floor_v2_kernel<8>, smem);
+      case 16: return go(pbwt_floor_v2_kernel<16>, smem);
+    }
+  }
+  if (version == 3 && H <= pbwtk::SMEM_H && group >= 1)
+    return go(pbwt_floor_v3_kernel, 5 * pbwtk::SMEM_H, group);
+  return (int)cudaErrorInvalidValue;
+}
+
+// PR 12's PBWT (csrc/pbwt_v1.cuh) with the pieces of `var` (pbwt_v1's
+// bits; 0 or one bit) taken out: an encode (decode = 0) or decode launch of
+// a pbwt_torch launch table as PR 12 laid it out (2 H words of scratch a
+// matrix past 4,096 values)
+int pbwt_probe_run(int var, int decode, const void* in, void* out,
+                   const void* meta, int R, int threads, void* work,
                    void* stream) {
-  using pbwt_floor::pbwt_floor_kernel;
-  const size_t smem = sizeof(pbwtk::Smem);
-  const cudaError_t e = cudaFuncSetAttribute(
-      pbwt_floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  pbwt_floor_kernel<<<R, threads, smem, (cudaStream_t)stream>>>(
-      rows, H, (int64_t*)sink);
-  return (int)cudaGetLastError();
+  return decode ? pbwt_v1::run_var<true>(var, in, out, meta, R, threads,
+                                         work, stream)
+                : pbwt_v1::run_var<false>(var, in, out, meta, R, threads,
+                                          work, stream);
 }
 
 }  // extern "C"

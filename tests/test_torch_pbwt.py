@@ -79,8 +79,15 @@ def test_many_matrices_in_one_launch():
     dec = pbwt_cuda.decode_many([Y.numpy() for Y in enc], "cpu")
     for A, B in zip(mats, dec):
         assert B.shape == A.shape and (B.numpy() == A).all()
+    # scratch: past SMEM_H perm and its sorted copy, 2 H int32 words
+    # (rounded to 16 bytes); the decoder adds every row's sort order
     _, meta, work = pbwt_torch.prepare([torch.from_numpy(A) for A in mats])
-    assert meta[-1, 3] == 0 and work == 2 * (pbwt_torch.SMEM_H + 37)
+    assert meta[-1, 3] == 0 and work == 2 * (pbwt_torch.SMEM_H + 37) + 2
+    _, meta, work = pbwt_torch.prepare([torch.from_numpy(A) for A in mats],
+                                       decode=True)
+    sig = [A.shape[0] * -(-A.shape[1] // 8) * 4 for A in mats]
+    assert meta[:, 3].tolist() == [sum(sig[:i]) for i in range(len(mats))]
+    assert work == sum(sig) + 2 * (pbwt_torch.SMEM_H + 37) + 2
 
 
 def test_wrappers_check_their_tensors():
@@ -92,9 +99,16 @@ def test_wrappers_check_their_tensors():
                                                        dtype=torch.uint8)])
     with pytest.raises(ValueError):
         pbwt_cuda.pbwt_encode(flat, meta[:, :3].contiguous(), work)
+    with pytest.raises(ValueError):          # no room for the sort orders
+        pbwt_cuda.pbwt_decode(flat, meta, work)
+    _, dmeta, dwork = pbwt_torch.prepare([torch.zeros((3, 4),
+                                                      dtype=torch.uint8)],
+                                         decode=True)
     before = dict(pbwt_cuda.launches)
-    pbwt_cuda.pbwt_decode(flat, meta, work)
+    pbwt_cuda.pbwt_decode(flat, dmeta, dwork)
     assert pbwt_cuda.launches == before      # the plain version: no launch
+    with pytest.raises(ValueError):
+        pbwt_cuda.pbwt_decode(flat, dmeta, dwork - 1)
     for col, value in ((0, 1), (1, 4), (2, -1)):
         bad = meta.clone()
         bad[0, col] = value                  # past the flat buffer
@@ -112,10 +126,23 @@ def _needs_card():
 
 
 def _card_matrices():
+    """One launch: the CPU matrices, a cfg1-wide and a 1000 Genomes-wide
+    one, all 256 values in every row, H = 401 (rows and matrices off 16-byte
+    alignment), the top of the shared-memory range and one past it (perm in
+    the scratch), and one past u16 sort orders."""
     rng = np.random.default_rng(23)
     mats = [matrix(k) for k in MATRICES]
     mats.append(synth_haplotypes(rng, 200, 400))
     mats.append(rng.integers(0, 11, (30, 5008)).astype(np.uint8))
+    mats.append(np.stack([rng.permutation(np.arange(512) % 256)
+                          for _ in range(12)]).astype(np.uint8))
+    mats.append(rng.choice(np.array([0, 1, 254], np.uint8), (40, 401),
+                           p=[0.7, 0.28, 0.02]))
+    mats.append(rng.integers(0, 3, (6, pbwt_torch.SMEM_H)).astype(np.uint8))
+    mats.append(rng.integers(0, 3, (5, pbwt_torch.SMEM_H + 1))
+                .astype(np.uint8))
+    mats.append(rng.integers(0, 3, (3, pbwt_torch.U16_H + 65))
+                .astype(np.uint8))          # sort orders as int32
     return mats
 
 
