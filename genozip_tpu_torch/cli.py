@@ -29,15 +29,33 @@ the fault: `--password`/`--md5` with `--pair`, `--deep` or `--hosts`
 with an option its workers would not see (F17). GXZ_REFERENCE names the
 reference when --reference is not given. `cat -o FILE` writes what `cat`
 prints to FILE.
+
+`zip` and `unzip` take `--show-time` (the region totals, then the
+counters in a table of their own) and `--trace-out FILE` (one Chrome trace
+JSON of the command: spans, counters and, with `--device cuda`, the card's
+operations from torch.profiler, on one clock; `utils/profiler.trace_to`).
 """
 
 import argparse
+import contextlib
 import os
 
 
 def _device_arg(p):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the rANS kernels run (default: cuda)")
+
+
+def _trace_args(p):
+    p.add_argument("--show-time", action="store_true",
+                   help="wall-clock region profile, then the counters "
+                        "(rANS streams and bytes by route, card calls, "
+                        "copies)")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="write a Chrome trace JSON of the command: its "
+                        "spans (one track a thread, with file and VB), its "
+                        "counters and, with --device cuda, the card's "
+                        "kernels, copies and memsets on the same clock")
 
 
 def build_parser():
@@ -58,8 +76,7 @@ def build_parser():
                         "first bytes do not say")
     z.add_argument("--vblock", type=int, default=None, help="VB size in MB")
     z.add_argument("--stats", action="store_true")
-    z.add_argument("--show-time", action="store_true",
-                   help="wall-clock region profile")
+    _trace_args(z)
     z.add_argument("--test", action="store_true",
                    help="verify by decompress+digest after compressing")
     z.add_argument("--fast", action="store_true",
@@ -120,7 +137,7 @@ def build_parser():
     u.add_argument("input")
     u.add_argument("-o", "--output")
     u.add_argument("--test", action="store_true", help="verify only")
-    u.add_argument("--show-time", action="store_true")
+    _trace_args(u)
     u.add_argument("--reference", default=None)
     u.add_argument("--password", default=None)
     _device_arg(u)
@@ -199,6 +216,24 @@ def main(argv=None):
     if args.cmd != "ls":
         from . import codecs
         codecs.enable_device_rans(args.device)
+    from .utils import profiler
+    trace_out = getattr(args, "trace_out", None)
+    show_time = getattr(args, "show_time", False)
+    if trace_out:
+        traced = profiler.trace_to(trace_out, cuda=args.device == "cuda")
+    elif show_time:
+        traced = profiler.recording()
+    else:
+        traced = contextlib.nullcontext()
+    with traced as rec:
+        _run(args)
+    if show_time:
+        print(profiler.report())
+        print(profiler.counters_report(rec.counters))
+    return 0
+
+
+def _run(args):
     if args.cmd == "zip":
         _zip(args)
     elif args.cmd == "unzip":
@@ -207,7 +242,7 @@ def main(argv=None):
             piz_file(args.input, None, reference=args.reference,
                      password=args.password)
             print("verified: round-trip digest OK")
-            return 0
+            return
         out = args.output or args.input.removesuffix(".gxz")
         if out == args.input:
             out = args.input + ".out"
@@ -218,10 +253,6 @@ def main(argv=None):
         cat(args)
     elif args.cmd == "ls":
         _ls(args)
-    if getattr(args, "show_time", False):
-        from .utils import profiler
-        print(profiler.report())
-    return 0
 
 
 def _zip(args):

@@ -11,6 +11,10 @@ genozip_tpu with its native runtime. Every stream takes
 writes the same bytes as the host route. A failure of the device route raises
 `DeviceKernelError`; nothing falls back to the host coder.
 
+While a recording is on (`utils/profiler`), the streams and payload bytes
+of each route are counted: the host's here (`rans:enc.host.*`,
+`rans:dec.host.*`), the card's in `rans_cuda` (`rans:enc.card.*`, ...).
+
 Every compress() returns a self-contained payload; the codec id travels in the
 section header (format/sections.py), `uncomp_len` with it.
 """
@@ -25,6 +29,7 @@ import torch
 from .. import native
 from ..ops import rans_cuda
 from ..ops.rans_cuda import DeviceKernelError  # noqa: F401  (re-export)
+from ..utils import profiler
 
 # codec ids (u8), stable on-disk values
 NONE = 0
@@ -98,6 +103,8 @@ def decompress_many_rans(blobs) -> list:
 def _rans_encode(data: bytes, order: int) -> bytes:
     if _device is not None and len(data) >= _min_size:
         return compress_many_rans([data], order)[0]
+    profiler.count("rans:enc.host.streams")
+    profiler.count("rans:enc.host.bytes", len(data))
     return native.rans_encode(data, order)
 
 
@@ -105,6 +112,8 @@ def _rans_decode(blob) -> bytes:
     n = int.from_bytes(bytes(blob[2:6]), "little")
     if _device is not None and n >= _min_size:
         return decompress_many_rans([blob])[0]
+    profiler.count("rans:dec.host.streams")
+    profiler.count("rans:dec.host.bytes", n)
     return native.rans_decode(blob)
 
 

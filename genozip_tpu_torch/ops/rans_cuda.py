@@ -47,6 +47,7 @@ import threading
 
 import torch
 
+from ..utils import profiler
 from . import rans_torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -311,27 +312,76 @@ def _device_errors(device, what: str):
         raise DeviceKernelError(f"{what} on {device}: {e}") from e
 
 
+def _count_call(kind: str, order: int, streams: int, symbols: int,
+                coded: int, h2d: int, d2h: int):
+    """Counters of one card call ("enc" or "dec"): the streams and payload
+    bytes sent to the card, the symbols and coded bytes by order, and the
+    bytes copied to and from the card."""
+    c = profiler.count
+    c(f"rans:{kind}.card.calls")
+    c(f"rans:{kind}.card.streams", streams)
+    c(f"rans:{kind}.card.bytes", symbols)
+    c(f"rans:{kind}.o{order}.symbols", symbols)
+    c(f"rans:{kind}.o{order}.coded", coded)
+    if h2d or d2h:
+        c(f"rans:{kind}.h2d_bytes", h2d)
+        c(f"rans:{kind}.d2h_bytes", d2h)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def encode_many(datas, order: int, device, n_lanes: int | None = None) -> list:
     """Encode R payloads in one launch on `device`; each result equals
     `rans_np.encode(d, order, n_lanes=n_lanes)`. With order 0 and a fixed
     `n_lanes` this is also the counterpart of the pre-v6 multi-stream
-    `rans_pallas.encode_many`."""
-    b = rans_torch.prepare_encode(datas, order, n_lanes)
-    fn = rans_encode_o0 if order == 0 else rans_encode_o1
-    with _device_errors(device, fn.__name__):
-        words, p, states = fn(b.data.to(device), b.meta.to(device),
-                              b.tab.to(device), b.n_words, b.n_states)
-        return rans_torch.finish_encode(b, words, p, states)
+    `rans_pallas.encode_many`. Spans: `rans:encode-many` around the call,
+    `rans:prepare` (framing), `rans:h2d`, `rans:kernel`, `rans:d2h` (the
+    copy back, which waits for the card) and `rans:finish` inside it."""
+    with profiler.timer("rans:encode-many"):
+        with profiler.timer("rans:prepare"):
+            b = rans_torch.prepare_encode(datas, order, n_lanes)
+        fn = rans_encode_o0 if order == 0 else rans_encode_o1
+        card = torch.device(device).type == "cuda"
+        with _device_errors(device, fn.__name__):
+            with profiler.timer("rans:h2d"):
+                ins = (b.data.to(device), b.meta.to(device),
+                       b.tab.to(device))
+            with profiler.timer("rans:kernel"):
+                words, p, states = fn(*ins, b.n_words, b.n_states)
+            with profiler.timer("rans:d2h"):
+                host = rans_torch.fetch_encode(b, words, p, states)
+            with profiler.timer("rans:finish"):
+                outs = rans_torch.frame_encode(b, *host)
+        _count_call("enc", order, len(outs), b.data.numel(),
+                    sum(map(len, outs)), _nbytes(*ins) if card else 0,
+                    sum(a.nbytes for a in host) if card else 0)
+        return outs
 
 
 def decode_many(bufs, device) -> list:
-    """Decode R streams of one order in one launch on `device`."""
-    b = rans_torch.prepare_decode(bufs)
-    fn = rans_decode_o0 if b.order == 0 else rans_decode_o1
-    with _device_errors(device, fn.__name__):
-        out = fn(b.words.to(device), b.meta.to(device), b.tab.to(device),
-                 b.n_out)
-        return rans_torch.finish_decode(b, out)
+    """Decode R streams of one order in one launch on `device`; the spans
+    of `encode_many`, under `rans:decode-many`."""
+    with profiler.timer("rans:decode-many"):
+        with profiler.timer("rans:prepare"):
+            b = rans_torch.prepare_decode(bufs)
+        fn = rans_decode_o0 if b.order == 0 else rans_decode_o1
+        card = torch.device(device).type == "cuda"
+        with _device_errors(device, fn.__name__):
+            with profiler.timer("rans:h2d"):
+                ins = (b.words.to(device), b.meta.to(device),
+                       b.tab.to(device))
+            with profiler.timer("rans:kernel"):
+                out = fn(*ins, b.n_out)
+            with profiler.timer("rans:d2h"):
+                host = out.cpu().numpy()
+            with profiler.timer("rans:finish"):
+                outs = rans_torch.frame_decode(b, host)
+        _count_call("dec", b.order, len(outs), b.n_out,
+                    sum(map(len, bufs)), _nbytes(*ins) if card else 0,
+                    host.nbytes if card else 0)
+        return outs
 
 
 def _one_stream(buf, order: int, device) -> bytes:

@@ -7,7 +7,8 @@ streams is laid out flat for one launch:
   host and packs the symbols, `meta` rows and tables into tensors; a coder
   (`encode_plain`, or the kernel behind `ops.rans_cuda`) fills the backward
   word buffer, the first-word pointers and the final states; `finish_encode`
-  frames header + states (hi, lo, lane-ascending) + words.
+  copies them back (`fetch_encode`) and frames header + states (hi, lo,
+  lane-ascending) + words (`frame_encode`).
 * decode: `prepare_decode` parses each stream's header and serialized tables
   (the same bytes `rans_np._freqs_deserialize` reads) into freq/cum tables
   and packs the word bodies; a coder turns the tables into packed slot
@@ -128,17 +129,24 @@ def prepare_encode(datas, order: int, n_lanes: int | None = None) -> EncodeBatch
                        ooff, soff)
 
 
-def finish_encode(batch: EncodeBatch, words: torch.Tensor, p: torch.Tensor,
-                  states: torch.Tensor) -> list:
-    """Frame each stream: header, (hi, lo) states lane-ascending, then the
-    words the coder wrote at [p, out_len)."""
+def fetch_encode(batch: EncodeBatch, words: torch.Tensor, p: torch.Tensor,
+                 states: torch.Tensor):
+    """The copy back of an encode: the first-word pointers, then only the
+    written words ([p, out_len) of each stream) and the final states, as
+    host arrays (p, words u16, states u32); waits for the coder."""
     meta = batch.meta.numpy()
     p = p.cpu().numpy()
-    # only the written words come back: gather [p, out_len) of each stream
     spans = [(int(m[4] + pr), int(m[4] + m[6])) for m, pr in zip(meta, p)]
     w = torch.cat([words[a:b] for a, b in spans]) if spans else words[:0]
-    w = w.cpu().numpy().view(np.uint16)
-    st = states.cpu().numpy().view(np.uint32)
+    return (p, w.cpu().numpy().view(np.uint16),
+            states.cpu().numpy().view(np.uint32))
+
+
+def frame_encode(batch: EncodeBatch, p: np.ndarray, w: np.ndarray,
+                 st: np.ndarray) -> list:
+    """Frame each stream from `fetch_encode`'s arrays: header, (hi, lo)
+    states lane-ascending, then its written words."""
+    meta = batch.meta.numpy()
     outs = []
     at = 0
     for r, hdr in enumerate(batch.headers):
@@ -147,10 +155,18 @@ def finish_encode(batch: EncodeBatch, words: torch.Tensor, p: torch.Tensor,
         flush = np.empty(2 * N, np.uint16)
         flush[0::2] = x >> 16
         flush[1::2] = x & 0xFFFF
-        nw = spans[r][1] - spans[r][0]
+        nw = int(meta[r, 6] - p[r])
         outs.append(hdr + flush.tobytes() + w[at:at + nw].tobytes())
         at += nw
     return outs
+
+
+def finish_encode(batch: EncodeBatch, words: torch.Tensor, p: torch.Tensor,
+                  states: torch.Tensor) -> list:
+    """Frame each stream: header, (hi, lo) states lane-ascending, then the
+    words the coder wrote at [p, out_len) (`fetch_encode`, then
+    `frame_encode`)."""
+    return frame_encode(batch, *fetch_encode(batch, words, p, states))
 
 
 def parse_stream(buf):
@@ -219,11 +235,16 @@ def prepare_decode(bufs) -> DecodeBatch:
                        ooff, [p[2] for p in parsed])
 
 
-def finish_decode(batch: DecodeBatch, out: torch.Tensor) -> list:
-    o = out.cpu().numpy()
+def frame_decode(batch: DecodeBatch, o: np.ndarray) -> list:
+    """Each stream's bytes out of every stream's symbols `o`, copied back
+    to the host."""
     meta = batch.meta.numpy()
     return [o[int(meta[r, 5]):int(meta[r, 5]) + n].tobytes()
             for r, n in enumerate(batch.lens)]
+
+
+def finish_decode(batch: DecodeBatch, out: torch.Tensor) -> list:
+    return frame_decode(batch, out.cpu().numpy())
 
 
 # --- plain versions ---------------------------------------------------------

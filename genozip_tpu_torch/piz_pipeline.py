@@ -21,6 +21,7 @@ SEQ and QUAL of their matching reads from that index (src/fastq_deep.c).
 Reference parity: src/piz.c:880 piz_one_txt_file / :381 piz_reconstruct_one_vb.
 """
 
+import contextlib
 import hashlib
 import os
 import threading
@@ -210,10 +211,21 @@ class PizReader:
                               meta["ltype"])
         return out
 
+    @contextlib.contextmanager
+    def _io(self):
+        """self.io_lock held for the block; the wait for it is span
+        `piz:io-wait`."""
+        with profiler.timer("piz:io-wait"):
+            self.io_lock.acquire()
+        try:
+            yield
+        finally:
+            self.io_lock.release()
+
     def load_vb(self, vb_i: int, comp_i: int = 0):
         """I/O + decompress phase (thread-safe under self.io_lock). An R2
         VB also loads the R1 sections it copies."""
-        with self.io_lock:
+        with self._io():
             payload, _ = self.zr.read_one(fmt.SEC_VB_HEADER, vb_i=vb_i,
                                           comp_i=comp_i)
             if payload is None and comp_i == 0:
@@ -242,33 +254,38 @@ class PizReader:
         `workers`) VBs ahead; a MAIN VB of a gencomp archive gets its
         deported lines back on the consuming thread, when it is taken, so a
         caller may drain skipped VBs (drain_vb_gencomp) between two
-        takes."""
+        takes. Each VB loads and reconstructs under its VB's context
+        (`utils/profiler.vb`)."""
         gc = comp_i == 0 and self.ensure_gencomp()
 
         def work(vb_i):
-            return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
-                                        comp_i, want_pctxs=True)
+            with profiler.vb(comp_i, vb_i):
+                return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
+                                            comp_i, want_pctxs=True)
 
-        def merged(res):
+        def merged(vb_i, res):
             out, pctxs = res
             if not gc:
                 return out
-            with profiler.timer("piz:drain"):
+            with profiler.vb(comp_i, vb_i), profiler.timer("piz:drain"):
                 return self.merge_vb_gencomp(out, pctxs)
 
         if workers <= 1:
             for vb_i in vb_ids:
-                yield merged(work(vb_i))
+                yield merged(vb_i, work(vb_i))
             return
         window = window or workers
         with ThreadPoolExecutor(max_workers=workers) as pool:
             inflight = deque()
             for vb_i in vb_ids:
-                inflight.append(pool.submit(work, vb_i))
+                inflight.append((vb_i, pool.submit(profiler.bind(work),
+                                                   vb_i)))
                 if len(inflight) > window:
-                    yield merged(inflight.popleft().result())
+                    vb_j, fut = inflight.popleft()
+                    yield merged(vb_j, fut.result())
             while inflight:
-                yield merged(inflight.popleft().result())
+                vb_j, fut = inflight.popleft()
+                yield merged(vb_j, fut.result())
 
     def ensure_gencomp(self) -> bool:
         """Load the PRIM/DEPN record queues and the SAG store, once, if the
@@ -325,7 +342,7 @@ class PizReader:
 
     def gencomp_counts(self, vb_i: int):
         """(deported PRIM lines, deported DEPN lines) of MAIN VB `vb_i`."""
-        with self.io_lock:
+        with self._io():
             sec = self._load_ctx_sections(vb_i, 0, ["GPPOS", "GCPOS"])
         return tuple(
             0 if sec.get(nm, {}).get("local") is None
@@ -385,7 +402,7 @@ class PizReader:
     def _apply_gpos_pair_delta(self, pctxs, vb_i):
         """R2 GPOS was stored as a delta against R1's GPOS for reads aligned
         in both (reference fastq_seg_gpos_R2, fastq_seq.c:187)."""
-        with self.io_lock:
+        with self._io():
             r1 = self._load_ctx_sections(vb_i, 0, ["SQBITMAP", "GPOS"])
         a1 = r1["SQBITMAP"]["local"][0].astype(bool)
         g1 = np.zeros(a1.shape[0], np.int64)
@@ -423,8 +440,15 @@ def piz_file(z_path: str, out_path: str | None = None,
     """Reconstruct the archive's file into `out_path` (None: verify only);
     the components of a paired or deep archive go to `out_path`.1,
     `out_path`.2, ...; `password` opens an encrypted archive. Returns the
-    bytes reconstructed."""
-    pr = PizReader(z_path, reference, password)
+    bytes reconstructed. The call is span `piz:file`, the root of the
+    file's spans (its own file id, `utils/profiler.file`)."""
+    with profiler.file(), profiler.timer("piz:file"):
+        with profiler.timer("piz:open"):
+            pr = PizReader(z_path, reference, password)
+        return _piz_all(pr, out_path)
+
+
+def _piz_all(pr, out_path):
     try:
         comps = pr.components()
         total = 0
@@ -490,18 +514,20 @@ def _piz(pr, comp_i, out_path, n_workers=None, window=None, sink=None):
         # workers load+decompress+reconstruct whole VBs concurrently; this
         # thread drains them in order (running digest and output write; a
         # deep archive's BAM records go into the index in VB order)
-        for out in pr.vbs_in_order(range(1, pr.comp_num_vbs(comp_i) + 1),
-                                   comp_i, n_workers or workers(), window):
-            if deep is not None:
-                with profiler.timer("piz:deep-index"):
-                    deep.add_bam_records(out)
-            with profiler.timer("piz:drain"):
-                adler = zlib.adler32(out, adler)
-                if md5:
-                    md5.update(out)
-                total += len(out)
-                if sink:
-                    sink.write(out)
+        vb_ids = range(1, pr.comp_num_vbs(comp_i) + 1)
+        for out, vb_i in zip(pr.vbs_in_order(
+                vb_ids, comp_i, n_workers or workers(), window), vb_ids):
+            with profiler.vb(comp_i, vb_i):
+                if deep is not None:
+                    with profiler.timer("piz:deep-index"):
+                        deep.add_bam_records(out)
+                with profiler.timer("piz:drain"):
+                    adler = zlib.adler32(out, adler)
+                    if md5:
+                        md5.update(out)
+                    total += len(out)
+                    if sink:
+                        sink.write(out)
     finally:
         if own and sink:
             sink.close()

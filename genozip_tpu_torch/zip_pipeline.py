@@ -41,6 +41,7 @@ Reference parity: src/zip.c:721 zip_one_file / :510 zip_compress_one_vb.
 import contextlib
 import copy
 import hashlib
+import itertools
 import os
 import time
 import zlib
@@ -363,11 +364,24 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
     same bytes. `mesh` (--mesh N, with a reference): FASTQ reads are placed
     by the seed aligner kernel on N devices (parallel/mesh_aligner.py),
     whose placements are genozip_tpu's mesh aligner's, not the host
-    aligner's. Their devices are `parallel.devices_for`'s."""
+    aligner's. Their devices are `parallel.devices_for`'s.
+
+    The call is span `zip:file`, the root of the file's spans (its own
+    file id, `utils/profiler.file`)."""
+    with profiler.file(), profiler.timer("zip:file"):
+        return _zip_file(in_path, out_path, vb_size, show_stats, threads,
+                         reference, store_ref, optimize, bamass, dt_name,
+                         password, use_md5, truncate, dp, mesh)
+
+
+def _zip_file(in_path, out_path, vb_size, show_stats, threads, reference,
+              store_ref, optimize, bamass, dt_name, password, use_md5,
+              truncate, dp, mesh):
     if bamass and not reference:
         raise ValueError("--bamass needs --reference")
-    reader, dt, dt_name = _open_component(in_path, reference, dt_name,
-                                          truncate=truncate)
+    with profiler.timer("zip:open"):
+        reader, dt, dt_name = _open_component(in_path, reference, dt_name,
+                                              truncate=truncate)
     try:
         dt.optimize_enabled = optimize
         if store_ref and getattr(dt, "ref", None) is not None:
@@ -380,9 +394,9 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
                 dt.bamass_index = build_bamass_index(bamass, dt.ref)
         if vb_size is None:
             vb_size = dt.suggested_vb_size() or DEFAULT_VB_SIZE
-        job = ZipJob(out_path, dp)
+        with profiler.timer("zip:open"):
+            job, enc = _open_job(out_path, dp, password)
         try:
-            enc = _setup_encryption(job, password)
             _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
                       reference, store_ref, enc,
                       hashlib.md5() if use_md5 else None, truncate)
@@ -393,6 +407,16 @@ def zip_file(in_path: str, out_path: str, vb_size: int | None = None,
     if show_stats:
         print_stats(job.stats)
     return job.stats
+
+
+def _open_job(out_path, dp, password):
+    """(the ZipJob writing `out_path`, its encryption entry)."""
+    job = ZipJob(out_path, dp)
+    try:
+        return job, _setup_encryption(job, password)
+    except BaseException:
+        job.out.close()
+        raise
 
 
 def _setup_encryption(job, password):
@@ -415,7 +439,8 @@ def calibrate(job, reader, dt, iref=None) -> bytes:
     populated out of VB order, so calibration runs with it detached (SEQ
     goes verbatim). Returns the sample peeked, which is part of the VB
     boundary layout (`TxtReader.vblocks` takes the buffered prefix first)."""
-    cal = reader.peek(1 << 20)
+    with profiler.timer("zip:read"):
+        cal = reader.peek(1 << 20)
     if cal:
         cdata = np.frombuffer(cal, np.uint8)
         cut = dt.vb_boundary(cdata, False)
@@ -425,7 +450,8 @@ def calibrate(job, reader, dt, iref=None) -> bytes:
             try:
                 with profiler.timer("zip:segconf-cal"):
                     cres = dt.seg_vb(cdata[:cut].copy())
-                job.precommit_codecs(cres)
+                with profiler.timer("zip:codec-commit"):
+                    job.precommit_codecs(cres)
             except codecs.DeviceKernelError:
                 raise   # ...but a failing card must not go unnoticed
             except Exception:
@@ -439,7 +465,8 @@ def calibrate(job, reader, dt, iref=None) -> bytes:
 
 def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
               reference, store_ref, enc, md5, truncate):
-    txt_header = dt.read_txt_header(reader)
+    with profiler.timer("zip:read"):
+        txt_header = dt.read_txt_header(reader)
     file_adler = zlib.adler32(b"")
     if txt_header:
         file_adler = zlib.adler32(txt_header, file_adler)
@@ -477,25 +504,37 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
             nonlocal vb_i
             pdata, pfut, gcpos = inflight.popleft()
             vb_i += 1
-            with profiler.timer("zip:seg-wait"):
-                pres, pre_locals = pfut.result()
-            gencomp.add_positions(pres, gcpos)
-            with profiler.timer("zip:merge+write"):
-                batch.append(job.build_vb(pres, pdata, vb_i,
-                                          pre_locals=pre_locals))
-                if len(batch) >= job.batch_vbs:
-                    job.flush_batch(batch)
-                    batch.clear()
+            with profiler.vb(0, vb_i):
+                with profiler.timer("zip:seg-wait"):
+                    pres, pre_locals = pfut.result()
+                gencomp.add_positions(pres, gcpos)
+                with profiler.timer("zip:merge+write"):
+                    batch.append(job.build_vb(pres, pdata, vb_i,
+                                              pre_locals=pre_locals))
+                    if len(batch) >= job.batch_vbs:
+                        job.flush_batch(batch)
+                        batch.clear()
             prog.update(int(pdata.shape[0]))
 
-        for data in reader.vblocks(dt, vb_size):
-            # the digests cover the original stream, before deportation
-            file_adler = zlib.adler32(data, file_adler)
-            if md5:
-                md5.update(data)
-            with profiler.timer("zip:gencomp-split"):
-                data, gcpos = gencomp.split(data)
-            inflight.append((data, pool.submit(seg_one, data), gcpos))
+        # VBs are numbered in the order they are read; drain takes them in
+        # that order
+        vblocks = reader.vblocks(dt, vb_size)
+        for n_read in itertools.count(1):
+            with profiler.vb(0, n_read):
+                with profiler.timer("zip:read"):
+                    data = next(vblocks, None)
+                    if data is not None:
+                        # the digests cover the original stream, before
+                        # deportation
+                        file_adler = zlib.adler32(data, file_adler)
+                        if md5:
+                            md5.update(data)
+                if data is None:
+                    break
+                with profiler.timer("zip:gencomp-split"):
+                    data, gcpos = gencomp.split(data)
+                inflight.append((data, pool.submit(profiler.bind(seg_one),
+                                                   data), gcpos))
             # VB 1 segs alone: its first-sight codec commits are visible to
             # every later VB
             if vb_i == 0 or len(inflight) > workers:
@@ -534,7 +573,8 @@ def _zip_into(job, reader, dt, dt_name, in_path, vb_size, threads,
         "mgzip": mgzip,
         "gencomp": gencomp_hdr,
     }
-    job.write_global_area(file_hdr)
+    with profiler.timer("zip:global-area"):
+        job.write_global_area(file_hdr)
 
 
 class _Gencomp:
@@ -633,7 +673,8 @@ class _Gencomp:
             if chunk.shape[0] == 0:
                 chunk = txt[off:end]
             gvb += 1
-            job.write_vb(dt.seg_vb(chunk), chunk, gvb, comp_i)
+            with profiler.vb(comp_i, gvb):
+                job.write_vb(dt.seg_vb(chunk), chunk, gvb, comp_i)
             off += chunk.shape[0]
         return gvb
 
