@@ -195,17 +195,23 @@ class ZReader:
             out = [e for e in out if e.comp_i == comp_i]
         return out
 
-    def read_section_raw(self, ent: SectionEnt):
-        """Returns (compressed_bytes, header_dict) — decrypted and digest-
-        checked, NOT decompressed (batched device decoding decompresses
-        many sections in one kernel launch)."""
+    def read_section_bytes(self, ent: SectionEnt):
+        """(header fields, stored payload) of a section: the one step that
+        moves the file position, so a reader shared by threads holds its
+        lock for this and nothing else. The payload is as stored (still
+        encrypted, unchecked); `check_section` finishes it."""
         self.f.seek(ent.offset)
         hdr = _HDR.unpack(self.f.read(HDR_SIZE))
-        (magic, sec_type, codec, flags, ltype, vb_i, comp_i, did,
-         uncomp_len, comp_len, param, adler) = hdr
-        if magic != MAGIC:
+        if hdr[0] != MAGIC:     # its length must not drive the read
             raise ValueError("corrupt section header")
-        comp = self.f.read(comp_len)
+        return hdr, self.f.read(hdr[9])
+
+    def check_section(self, ent: SectionEnt, hdr, comp):
+        """(compressed_bytes, header_dict) of a section that
+        `read_section_bytes` read: decrypted and digest-checked, NOT
+        decompressed. Touches no state of the reader."""
+        (_, sec_type, codec, flags, ltype, vb_i, comp_i, did,
+         uncomp_len, comp_len, param, adler) = hdr
         if flags & crypt.FLAG_ENCRYPTED:
             if self.crypt_key is None:
                 raise ValueError("archive is encrypted — password required")
@@ -218,6 +224,12 @@ class ZReader:
                     vb_i=vb_i, comp_i=comp_i, dict_id=did, param=param,
                     comp_len=comp_len, uncomp_len=uncomp_len)
         return comp, meta
+
+    def read_section_raw(self, ent: SectionEnt):
+        """Returns (compressed_bytes, header_dict) — decrypted and digest-
+        checked, NOT decompressed (batched device decoding decompresses
+        many sections in one kernel launch)."""
+        return self.check_section(ent, *self.read_section_bytes(ent))
 
     def read_section(self, ent: SectionEnt):
         """Returns (payload_bytes, header_dict)."""

@@ -181,6 +181,10 @@ _LIB = KernelLib("rans", {
     "rans_encode_o1": (_ENC_ARGS, _ci), "rans_decode_o1": (_DEC_ARGS, _ci)})
 KERNELS = tuple(_LIB.launches)
 launches, lib, reset_launches = _LIB.launches, _LIB.lib, _LIB.reset_launches
+# the plain decoder runs one call at a time: it holds the interpreter lock
+# for most of its steps and each calling thread starts its own team of
+# intra-op threads, so concurrent calls (PIZ's workers) only contend
+_PLAIN_DECODE = threading.Lock()
 
 
 def _check(name, t, dtype, ndim=None, shape=None):
@@ -261,7 +265,8 @@ def _decode(order, words, meta, tab, n_out):
     _check("tab", tab, torch.int32, shape=_tab_shape(order, R))
     dev = _same_device(words, meta, tab)
     if dev.type == "cpu":
-        return rans_torch.decode_plain(order, words, meta, tab, n_out)
+        with _PLAIN_DECODE:
+            return rans_torch.decode_plain(order, words, meta, tab, n_out)
     if words.data_ptr() % 16:
         raise ValueError("words: the decoders copy 16-byte chunks and need a "
                          "16-byte aligned tensor")

@@ -135,6 +135,8 @@ class PizReader:
         self._gc_loaded = False
         self._gc_prim = self._gc_depn = None
         self.io_lock = threading.Lock()
+        self._dec_lock = threading.Lock()
+        self._decoding = 0      # VB decodes running (`_uncompressing`)
         self.dicts = {}
         for ent in self.zr.sections(fmt.SEC_DICT):
             payload, meta = self.zr.read_section(ent)
@@ -170,10 +172,10 @@ class PizReader:
             return comps[comp_i].get("num_vbs", self.num_vbs())
         return self.num_vbs()
 
-    def _load_ctx_sections(self, vb_i, comp_i=0, names=None):
-        """Read and uncompress a VB's B250/LOCAL sections. Returns
-        {name: {'b250': arr, 'local': (arr, ltype)}}. RANS0/RANS1 sections
-        of the device size decode in one launch per order."""
+    def _read_ctx_raws(self, vb_i, comp_i=0, names=None):
+        """The stored bytes of a VB's B250/LOCAL sections (only `names`,
+        when given): [(ent, name, (header fields, payload))]. The caller
+        holds io_lock."""
         raws = []
         for ent in self.zr.sections(vb_i=vb_i, comp_i=comp_i):
             if ent.sec_type not in (fmt.SEC_B250, fmt.SEC_LOCAL):
@@ -181,8 +183,16 @@ class PizReader:
             name = ent.dict_id.rstrip(b"\0").decode()
             if names is not None and name not in names:
                 continue
-            comp, meta = self.zr.read_section_raw(ent)
-            raws.append((ent, name, comp, meta))
+            raws.append((ent, name, self.zr.read_section_bytes(ent)))
+        return raws
+
+    def _uncompress_ctx_sections(self, raws):
+        """Check, decrypt and uncompress what `_read_ctx_raws` read, with
+        no lock held. Returns {name: {'b250': arr, 'local': (arr, ltype)}}.
+        RANS0/RANS1 sections of the device size decode in one launch per
+        order."""
+        raws = [(ent, name, *self.zr.check_section(ent, *stored))
+                for ent, name, stored in raws]
         payloads = {}
         bmin = codecs.device_batch_min()
         if bmin:
@@ -211,6 +221,12 @@ class PizReader:
                               meta["ltype"])
         return out
 
+    def _load_ctx_sections(self, vb_i, comp_i=0, names=None):
+        """Read and uncompress a VB's B250/LOCAL sections; the caller holds
+        io_lock."""
+        return self._uncompress_ctx_sections(
+            self._read_ctx_raws(vb_i, comp_i, names))
+
     @contextlib.contextmanager
     def _io(self):
         """self.io_lock held for the block; the wait for it is span
@@ -222,23 +238,58 @@ class PizReader:
         finally:
             self.io_lock.release()
 
+    @contextlib.contextmanager
+    def _uncompressing(self):
+        """One VB's decode: counts `piz:uncompress.vbs`, and
+        `piz:uncompress.overlapped` when another VB's decode is running."""
+        with self._dec_lock:
+            overlapped = self._decoding > 0
+            self._decoding += 1
+        profiler.count("piz:uncompress.vbs")
+        if overlapped:
+            profiler.count("piz:uncompress.overlapped")
+        try:
+            yield
+        finally:
+            with self._dec_lock:
+                self._decoding -= 1
+
+    def _vb_header_ent(self, vb_i: int, comp_i: int):
+        ents = self.zr.sections(fmt.SEC_VB_HEADER, vb_i, comp_i)
+        if not ents and comp_i == 0:
+            ents = self.zr.sections(fmt.SEC_VB_HEADER, vb_i)
+        if not ents:
+            raise ValueError(f"VB {vb_i} of component {comp_i} missing")
+        return ents[0]
+
     def load_vb(self, vb_i: int, comp_i: int = 0):
-        """I/O + decompress phase (thread-safe under self.io_lock). An R2
-        VB also loads the R1 sections it copies."""
-        with self._io():
-            payload, _ = self.zr.read_one(fmt.SEC_VB_HEADER, vb_i=vb_i,
-                                          comp_i=comp_i)
-            if payload is None and comp_i == 0:
-                payload, _ = self.zr.read_one(fmt.SEC_VB_HEADER, vb_i=vb_i)
-            if payload is None:
-                raise ValueError(f"VB {vb_i} of component {comp_i} missing")
-            vb_hdr = fmt.vbhdr_parse(payload)
+        """Read and uncompress VB `vb_i`, thread-safe. io_lock guards the
+        file position, the one state that threads share: it is held only
+        while the archive's bytes are read (span `piz:read`), and the
+        digest checks, decryption and decoding run after it, concurrently
+        across threads. An R2 VB also loads the R1 sections it copies, read
+        in a second hold once its header is decoded."""
+        hent = self._vb_header_ent(vb_i, comp_i)
+        with contextlib.ExitStack() as held:
+            held.enter_context(self._io())
             with profiler.timer("piz:read+uncompress"):
-                sec = self._load_ctx_sections(vb_i, comp_i)
-                pair_names = [n for n, cm in vb_hdr["ctxs"].items()
-                              if "pair" in cm]
-                pair_sec = self._load_ctx_sections(vb_i, 0, pair_names) \
-                    if pair_names else {}
+                with profiler.timer("piz:read"):
+                    hdr_stored = self.zr.read_section_bytes(hent)
+                    raws = self._read_ctx_raws(vb_i, comp_i)
+                held.close()        # io_lock released
+                with self._uncompressing():
+                    comp, meta = self.zr.check_section(hent, *hdr_stored)
+                    vb_hdr = fmt.vbhdr_parse(codecs.decompress(
+                        comp, meta["codec"], meta["uncomp_len"]))
+                    pair_names = [n for n, cm in vb_hdr["ctxs"].items()
+                                  if "pair" in cm]
+                    pair_raws = []
+                    if pair_names:
+                        with self._io(), profiler.timer("piz:read"):
+                            pair_raws = self._read_ctx_raws(vb_i, 0,
+                                                            pair_names)
+                    sec = self._uncompress_ctx_sections(raws)
+                    pair_sec = self._uncompress_ctx_sections(pair_raws)
         return vb_hdr, sec, pair_sec
 
     def read_vb(self, vb_i: int, comp_i: int = 0) -> bytes:
@@ -248,27 +299,31 @@ class PizReader:
         return next(self.vbs_in_order([vb_i], comp_i))
 
     def vbs_in_order(self, vb_ids, comp_i: int = 0, workers: int = 1,
-                     window: int | None = None):
-        """The VBs `vb_ids` of component `comp_i`, one at a time, in order.
-        `workers` threads load and reconstruct up to `window` (default:
-        `workers`) VBs ahead; a MAIN VB of a gencomp archive gets its
-        deported lines back on the consuming thread, when it is taken, so a
-        caller may drain skipped VBs (drain_vb_gencomp) between two
-        takes. Each VB loads and reconstructs under its VB's context
-        (`utils/profiler.vb`)."""
+                     window: int | None = None, with_adler: bool = False):
+        """The VBs `vb_ids` of component `comp_i`, one at a time, in order;
+        with `with_adler`, (bytes, their adler32) pairs. `workers` threads
+        load and reconstruct up to `window` (default: `workers`) VBs ahead;
+        a MAIN VB of a gencomp archive gets its deported lines back on the
+        consuming thread, when it is taken, so a caller may drain skipped
+        VBs (drain_vb_gencomp) between two takes. Each VB loads and
+        reconstructs under its VB's context (`utils/profiler.vb`)."""
         gc = comp_i == 0 and self.ensure_gencomp()
 
         def work(vb_i):
             with profiler.vb(comp_i, vb_i):
-                return self.recon_loaded_vb(self.load_vb(vb_i, comp_i), vb_i,
-                                            comp_i, want_pctxs=True)
+                loaded = self.load_vb(vb_i, comp_i)
+                out, pctxs = self.recon_loaded_vb(loaded, vb_i, comp_i,
+                                                  want_pctxs=True)
+            # recon_loaded_vb checked that the header's adler32 is out's
+            return out, pctxs, loaded[0]["adler"]
 
         def merged(vb_i, res):
-            out, pctxs = res
-            if not gc:
-                return out
-            with profiler.vb(comp_i, vb_i), profiler.timer("piz:drain"):
-                return self.merge_vb_gencomp(out, pctxs)
+            out, pctxs, adler = res
+            if gc:
+                with profiler.vb(comp_i, vb_i), profiler.timer("piz:drain"):
+                    out = self.merge_vb_gencomp(out, pctxs)
+                    adler = zlib.adler32(out) if with_adler else None
+            return (out, adler) if with_adler else out
 
         if workers <= 1:
             for vb_i in vb_ids:
@@ -483,6 +538,18 @@ def _open_sink(pr, out_path):
     return MgzipExactWriter(open(out_path, "wb"), isizes, mg["level"], header)
 
 
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """The adler32 of A + B from adler1 = adler32(A), adler2 = adler32(B)
+    and len2 = len(B) (zlib's adler32_combine)."""
+    base = 65521
+    rem = len2 % base
+    s1 = adler1 & 0xFFFF
+    s2 = rem * s1 % base
+    s1 = (s1 + (adler2 & 0xFFFF) + base - 1) % base
+    s2 = (s2 + (adler1 >> 16) + (adler2 >> 16) + base - rem) % base
+    return s1 | (s2 << 16)
+
+
 def workers() -> int:
     """Threads that reconstruct VBs ahead of an ordered consumer."""
     return min(os.cpu_count() or 2, 8)
@@ -511,18 +578,20 @@ def _piz(pr, comp_i, out_path, n_workers=None, window=None, sink=None):
                 sink.write(hdr)
             if md5:
                 md5.update(hdr)
-        # workers load+decompress+reconstruct whole VBs concurrently; this
-        # thread drains them in order (running digest and output write; a
-        # deep archive's BAM records go into the index in VB order)
+        # workers read (one at a time), decompress and reconstruct whole
+        # VBs concurrently; this thread drains them in order (the running
+        # digest, from each VB's own, and the output write; a deep
+        # archive's BAM records go into the index in VB order)
         vb_ids = range(1, pr.comp_num_vbs(comp_i) + 1)
-        for out, vb_i in zip(pr.vbs_in_order(
-                vb_ids, comp_i, n_workers or workers(), window), vb_ids):
+        for (out, vb_adler), vb_i in zip(pr.vbs_in_order(
+                vb_ids, comp_i, n_workers or workers(), window,
+                with_adler=True), vb_ids):
             with profiler.vb(comp_i, vb_i):
                 if deep is not None:
                     with profiler.timer("piz:deep-index"):
                         deep.add_bam_records(out)
                 with profiler.timer("piz:drain"):
-                    adler = zlib.adler32(out, adler)
+                    adler = adler32_combine(adler, vb_adler, len(out))
                     if md5:
                         md5.update(out)
                     total += len(out)

@@ -252,29 +252,20 @@ def tokenizer_recon_col(prefix: str, pctxs, n: int) -> Col:
             nlp = num_col.lens + pad
             offp = np.concatenate([[0], np.cumsum(nlp)])
             outp = np.full(int(offp[-1]), ord("0"), np.uint8)
-            tot0 = int(num_col.lens.sum())
-            if tot0:
-                pos0 = np.arange(tot0, dtype=np.int64) - np.repeat(
-                    num_col.offsets[:-1], num_col.lens)
-                outp[np.repeat(offp[:-1] + pad, num_col.lens) + pos0] = \
-                    num_col.data
+            ragged.copy_rows(num_col.data, num_col.offsets[:-1], outp,
+                             offp[:-1] + pad, num_col.lens)
             num_col = Col(outp, offp)
-    # splice: replace each TOK_MARK byte with its rendered number
-    piece_lens = np.ones(data.shape[0], dtype=np.int64)
-    piece_lens[marks] = num_col.lens
-    out_total = int(piece_lens.sum())
-    out = np.empty(out_total, dtype=np.uint8)
-    dst_off = np.concatenate([[0], np.cumsum(piece_lens)])
-    # copy non-mark bytes
-    nonmark = np.ones(data.shape[0], dtype=bool)
-    nonmark[marks] = False
-    out[dst_off[:-1][nonmark]] = data[nonmark]
-    # copy numbers
+    # splice: replace each TOK_MARK byte with its rendered number, as range
+    # copies of the template's pieces between marks and of the numbers;
+    # shift[j] is how far the template's bytes after j marks move
     nl = num_col.lens
-    tot = int(nl.sum())
-    if tot:
-        pos = np.arange(tot, dtype=np.int64) - np.repeat(num_col.offsets[:-1], nl)
-        out[np.repeat(dst_off[:-1][marks], nl) + pos] = num_col.data
+    shift = np.concatenate([[0], np.cumsum(nl - 1)])
+    piece_start = np.concatenate([[0], marks + 1])
+    piece_lens = np.concatenate([marks, [data.shape[0]]]) - piece_start
+    out = np.empty(data.shape[0] + int(shift[-1]), dtype=np.uint8)
+    ragged.copy_rows(data, piece_start, out, piece_start + shift, piece_lens)
+    ragged.copy_rows(num_col.data, num_col.offsets[:-1], out,
+                     marks + shift[:-1], nl)
     # new row offsets
     row_extra = np.zeros(n, dtype=np.int64)
     np.add.at(row_extra, mark_row, num_col.lens - 1)

@@ -6,8 +6,9 @@ Reference parity: src/profiler.h START_TIMER/COPY_TIMER macros wrapping ~300
 regions, aggregated per VB and reported with --show-time. Here:
 
 - `timer(region)` accumulates per-region totals and call counts
-  (`_totals`, `_counts`; `report()` prints them) on every call. While a
-  recording is on it also keeps a span: its name, thread, start and end
+  (`_totals`, `_counts`, under a lock, since many threads end spans at
+  once; `report()` prints them) on every call. While a recording is on
+  it also keeps a span: its name, thread, start and end
   (`time.perf_counter_ns`), the span that caused it (the innermost span
   open on the thread; a pool task's first span takes the span that
   submitted it, through `bind`), and the file and (comp_i, vb_i) it works
@@ -42,7 +43,7 @@ ANCHOR = "genozip_tpu_torch.trace_anchor"
 
 _rec = None                  # the recording on, or None (timer's one test)
 _counters = {}               # name -> running total (recordings only)
-_count_lock = threading.Lock()
+_lock = threading.Lock()     # _totals, _counts and _counters
 _tls = threading.local()     # .stack (open span ids), .ctx, .origin
 _ids = itertools.count(1)
 _file_ids = itertools.count(1)
@@ -57,9 +58,7 @@ def timer(region: str):
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            _totals[region] += dt
-            _counts[region] += 1
+            add(region, time.perf_counter() - t0)
         return
     stack = getattr(_tls, "stack", None)
     if stack is None:
@@ -74,30 +73,33 @@ def timer(region: str):
     finally:
         t1 = time.perf_counter_ns()
         stack.pop()
-        _totals[region] += (t1 - t0) / 1e9
-        _counts[region] += 1
+        add(region, (t1 - t0) / 1e9)
         rec._keep(Span(sid, parent, region, threading.get_ident(), t0, t1,
                        *ctx))
 
 
 def add(region: str, seconds: float):
-    _totals[region] += seconds
-    _counts[region] += 1
+    with _lock:
+        _totals[region] += seconds
+        _counts[region] += 1
 
 
 def reset():
-    _totals.clear()
-    _counts.clear()
+    with _lock:
+        _totals.clear()
+        _counts.clear()
 
 
 def report(min_frac: float = 0.005) -> str:
-    total = sum(_totals.values())
-    rows = sorted(_totals.items(), key=lambda kv: -kv[1])
+    with _lock:
+        totals, counts = dict(_totals), dict(_counts)
+    total = sum(totals.values())
+    rows = sorted(totals.items(), key=lambda kv: -kv[1])
     out = [f"{'region':24s} {'seconds':>9s} {'calls':>8s} {'%':>6s}"]
     for name, sec in rows:
         if total and sec / total < min_frac:
             continue
-        out.append(f"{name:24s} {sec:9.3f} {_counts[name]:8d} "
+        out.append(f"{name:24s} {sec:9.3f} {counts[name]:8d} "
                    f"{100 * sec / max(total, 1e-12):5.1f}%")
     out.append(f"{'TOTAL (sum of regions)':24s} {total:9.3f}")
     return "\n".join(out)
@@ -110,7 +112,7 @@ def count(name: str, n: int = 1):
     rec = _rec
     if rec is None:
         return
-    with _count_lock:
+    with _lock:
         v = _counters[name] = _counters.get(name, 0) + n
     rec._sample(name, v)
 
@@ -118,10 +120,9 @@ def count(name: str, n: int = 1):
 def snapshot() -> dict:
     """Copies of the region totals (seconds), their call counts and the
     counters."""
-    with _count_lock:
-        counters = dict(_counters)
-    return {"totals": dict(_totals), "counts": dict(_counts),
-            "counters": counters}
+    with _lock:
+        return {"totals": dict(_totals), "counts": dict(_counts),
+                "counters": dict(_counters)}
 
 
 def counters_report(counters: dict) -> str:
@@ -232,7 +233,7 @@ def recording(max_spans: int = MAX_SPANS):
         with rec._lock:
             rec.on = False
         if rec.dropped:
-            with _count_lock:
+            with _lock:
                 _counters[DROPPED] = _counters.get(DROPPED, 0) + rec.dropped
         after = snapshot()["counters"]
         rec.counters = {k: v - before.get(k, 0) for k, v in after.items()

@@ -93,6 +93,21 @@ def gather_ranges(data: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> Col
     return Col(data[src], offsets)
 
 
+def copy_rows(src: np.ndarray, src_starts, dst: np.ndarray, dst_starts,
+              lens):
+    """dst[dst_starts[i]:+lens[i]] = src[src_starts[i]:+lens[i]] for each
+    row i: through the host runtime from NATIVE_MIN_BYTES copied, below it
+    by numpy's repeat and gather."""
+    lens = np.asarray(lens, dtype=np.int64)
+    total = int(lens.sum())
+    if total >= NATIVE_MIN_BYTES:
+        native.copy_ranges(src, src_starts, dst, dst_starts, lens)
+    elif total:
+        within = arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        dst[np.repeat(dst_starts, lens) + within] = \
+            src[np.repeat(src_starts, lens) + within]
+
+
 def take(col: Col, idx: np.ndarray) -> Col:
     """Row-gather: new column with rows col[idx[0]], col[idx[1]], ..."""
     idx = np.asarray(idx, dtype=np.int64)
@@ -163,12 +178,7 @@ def interleave(cols, sep_after=None) -> Col:
     for j, c in enumerate(cols):
         dst = offsets[:-1] + intra
         clens = c.lens
-        total = int(clens.sum())
-        if total >= NATIVE_MIN_BYTES:
-            native.copy_ranges(c.data, c.offsets[:-1], out, dst, clens)
-        elif total:
-            pos = arange(total) - np.repeat(c.offsets[:-1], clens)
-            out[np.repeat(dst, clens) + pos] = c.data
+        copy_rows(c.data, c.offsets[:-1], out, dst, clens)
         s = sep_after[j]
         if s:
             sb = np.frombuffer(s, dtype=np.uint8)
@@ -313,16 +323,7 @@ def merge_rows(n: int, parts) -> Col:
     offsets = np.concatenate([[0], np.cumsum(lens)])
     out = np.empty(int(lens.sum()), dtype=np.uint8)
     for idx, c in parts:
-        clens = c.lens
-        total = int(clens.sum())
-        if not total:
-            continue
-        if total >= NATIVE_MIN_BYTES:
-            native.copy_ranges(c.data, c.offsets[:-1], out,
-                               offsets[:-1][idx], clens)
-            continue
-        pos = arange(total) - np.repeat(c.offsets[:-1], clens)
-        out[np.repeat(offsets[:-1][idx], clens) + pos] = c.data
+        copy_rows(c.data, c.offsets[:-1], out, offsets[:-1][idx], c.lens)
     return Col(out, offsets)
 
 
